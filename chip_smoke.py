@@ -4,13 +4,15 @@
 
 Phases, one line each on stdout:
   1. environment: the card and its power limit;
-  2. build: the CUDA library from countr_tpu_torch/csrc (nvcc, sm_90a) and
-     the Triton kernel's first compile;
-  3. kernels: each hand-written kernel against its plain PyTorch version
-     on the card, at the main path's shapes, bf16 — max|d|, and device
-     times (calls replayed from a CUDA graph, between CUDA events) of
-     the kernel, its plain version and one PyTorch library composition
-     as a yardstick, beside the card's bound for the same work;
+  2. build: the CUDA libraries from countr_tpu_torch/csrc (nvcc, sm_90a;
+     attn_block.cu for B2 and attn.cu for B3/B4, one nvcc each, started
+     together) and the Triton kernel's first compile;
+  3. kernels: each hand-written kernel (B1-B4) against its plain PyTorch
+     version on the card, at the main paths' shapes, bf16 — max|d|, and
+     device times (calls replayed from a CUDA graph, between CUDA events)
+     of the kernel, its plain version and one PyTorch library call or
+     composition as a yardstick, beside the card's bound for the same
+     work;
   4. forward: full-width mae_vit_base6_patch16 in the bf16 fast mode,
      random weights from torch.Generator seed 0, 16 windows — the kernel
      path against the same model with every kernel swapped for its
@@ -19,7 +21,17 @@ Phases, one line each on stdout:
   5. count: CountingEngine(batch_windows=16).count on four synthetic
      images (three plain widths, one in 3x3 grid mode), with the launch
      counters set to 0 just before and read just after: each window
-     batch must launch B1 26 times and B2 18 times.
+     batch must launch B1 26 times and B2 18 times;
+  6. train: full-width mae_vit_base6_patch16 in the bf16 training build
+     (B1, B3/B4, B2 off, encoder frozen), random weights from seed 0,
+     batch 8 of synthetic images, densities and exemplar crops — one
+     step's loss and gradients against the same step with every kernel
+     swapped for its plain version; 8 finetune steps (shots 3, 2, 1, 0
+     twice) on one repeated batch and loss mask at a constant learning
+     rate, with the counters set to 0 just before and read just after
+     (B1 44, B3 18, B4 6 and B2 0 per step), ms per step and images/s;
+     a torch.profiler pass over two steps (the device's idle share); one
+     step with the encoder unfrozen (B4 18).
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failed check raises: nonzero
 exit code and no result line. Needs a CUDA device; uses no JAX.
@@ -39,8 +51,28 @@ H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM
 H100_BYTES_PER_S = 3.35e12  # HBM3 bandwidth, H100 SXM
 LN_TOL = 2.0 ** -6  # docs/PARITY.md:228 (1.56e-2)
 BLOCK_TOL = 2.0 ** -5  # docs/PARITY.md:231 (3.1e-2)
+# docs/PARITY.md:229-230 (3.9e-3, the JAX kernel's own bf16 bound, fwd and
+# grads, at N(0, 1) inputs): one bf16 ulp of outputs in [0.5, 1). B3/B4
+# and their plain versions round at the same points, so they differ by
+# one ulp of an output at most: the limit is one ulp of the largest
+# reference value, and not below 3.9e-3.
+ATTN_TOL = 3.9e-3
 FORWARD_REL_TOL = 2.2e-2  # docs/PARITY.md:235, times max(1, max|ref|)
+# The train step, kernels against plain versions on the same weights,
+# batch and mask: the loss within 2.2e-2 relative (the forward's bound),
+# and each trainable gradient's cosine at least 0.99.
+TRAIN_LOSS_REL_TOL = 2.2e-2
+GRAD_COSINE_MIN = 0.99
 WINDOWS = 16
+TRAIN_BATCH = 8  # cli/finetune.py:35
+# The train phase's learning rate, held constant (min_lr = lr, no
+# warmup): the finetune CLI's peak rate at batch 8, blr 2e-4 * 8 / 256.
+# On an H100 (700 W) the random full-width model's shot-3 loss rose over
+# four steps at 1e-4 (0.097 to 0.152) and stayed level at 1e-5 (0.0969 to
+# 0.0973), each step with its own mask: Adam's
+# first steps move every weight by about lr, which the real recipe's
+# warmup avoids.
+TRAIN_LR = 2e-4 * TRAIN_BATCH / 256
 
 
 def say(phase: str, **kv) -> None:
@@ -108,12 +140,25 @@ def max_abs(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def phase_build():
-    from countr_tpu_torch.ops import fused_block
+def attn_limit(ref) -> float:
+    """One bf16 ulp of the largest |ref|, and not below ATTN_TOL."""
+    top = float(ref.float().abs().max())
+    return max(ATTN_TOL, 2.0 ** (np.floor(np.log2(top)) - 7)) if top > 0 else ATTN_TOL
 
-    rec = fused_block.build()
-    say("build", kernel="B2 attn_block", nvcc_s=rec["seconds"], library=rec["path"],
-        ptxas=[ln.strip() for ln in rec["log"].splitlines() if "Used" in ln])
+
+def phase_build():
+    from countr_tpu_torch.ops import fused_attn, fused_block
+    from countr_tpu_torch.ops.cuda_build import build_libraries
+
+    t0 = time.perf_counter()
+    built = build_libraries(["attn_block", "attn"])
+    wall = time.perf_counter() - t0
+    for name, (kernels, module) in (("attn_block", ("B2", fused_block)),
+                                    ("attn", ("B3 B4", fused_attn))):
+        rec = module.build()  # binds the library built above
+        say("build", kernel=kernels, source=f"countr_tpu_torch/csrc/{name}.cu",
+            nvcc_s=built[name][1]["seconds"], wall_s=wall, library=rec["path"],
+            ptxas=[ln.strip() for ln in rec["log"].splitlines() if "Used" in ln])
 
 
 def ln_phase(torch, dev):
@@ -199,20 +244,103 @@ def block_phase(torch, dev):
     return shapes
 
 
+def attn_phase(torch, dev):
+    """B3 and B4 at the train step's shapes: [8, 576, 512] with 16 heads
+    (decoder) and [8, 576, 768] with 12 (encoder), packed qkv."""
+    import torch.nn.functional as F
+    from countr_tpu_torch.ops.fused_attn import (
+        attention_bwd_plain, attention_exp2, fused_attention_bwd, fused_attention_qkv,
+    )
+
+    rng = np.random.default_rng(5)
+    bf = torch.bfloat16
+    fwd, bwd = [], []
+    for b, n, c, h in ((TRAIN_BATCH, 576, 512, 16), (TRAIN_BATCH, 576, 768, 12)):
+        hd = c // h
+
+        def t(*shape):
+            return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dev, bf)
+
+        qkvs = [t(b, n, 3 * c) for _ in range(4)]  # 4 sets > the 50 MB L2
+        gs = [t(b, n, c) for _ in range(4)]
+        qkv, g = qkvs[0], gs[0]
+        with torch.no_grad():
+            got = fused_attention_qkv(qkv, h)
+            dgot = fused_attention_bwd(qkv, g, h)
+            torch.cuda.synchronize()
+            want = attention_exp2(*qkv.chunk(3, dim=-1), h)
+            dwant = torch.cat(attention_bwd_plain(*qkv.chunk(3, dim=-1), g, h), dim=-1)
+        err, derr = max_abs(got, want), max_abs(dgot, dwant)
+        lim, dlim = attn_limit(want), attn_limit(dwant)
+        if not err <= lim or not derr <= dlim:
+            raise AssertionError(f"B3/B4 [{b},{n},{c}]x{h} max|d| {err} / {derr} > {lim} / {dlim}")
+
+        def heads(x):
+            return x.view(b, n, 3, h, hd).permute(2, 0, 3, 1, 4)
+
+        def sdpa(x):
+            return F.scaled_dot_product_attention(*heads(x))
+
+        # the library's backward: autograd through SDPA from its saved forward
+        leaves = [heads(x).contiguous().requires_grad_(True) for x in qkvs[:2]]
+        outs = [F.scaled_dot_product_attention(*lv) for lv in leaves]
+        ghs = [gg.view(b, n, h, hd).transpose(1, 2).contiguous() for gg in gs[:2]]
+
+        def sdpa_bwd(i):
+            return torch.autograd.grad(outs[i], leaves[i], ghs[i], retain_graph=True)
+
+        f4, f10 = 4 * b * n * n * c, 10 * b * n * n * c
+        by3, by4 = 4 * b * n * c * 2, 7 * b * n * c * 2
+
+        def bound(flops, moved):
+            tf, tb = flops / H100_BF16_FLOPS, moved / H100_BYTES_PER_S
+            return max(tf, tb) * 1e3, "operations" if tf > tb else "bytes"
+
+        with torch.no_grad():
+            args = [(x,) for x in qkvs]
+            bargs = list(zip(qkvs, gs))
+            b3_ms = graph_ms(torch, lambda x: fused_attention_qkv(x, h), args)
+            b3_plain = graph_ms(torch, lambda x: attention_exp2(*x.chunk(3, dim=-1), h), args,
+                                iters=4)
+            b3_lib = graph_ms(torch, sdpa, args)
+            b4_ms = graph_ms(torch, lambda x, gg: fused_attention_bwd(x, gg, h), bargs)
+            b4_plain = graph_ms(torch, lambda x, gg: attention_bwd_plain(
+                *x.chunk(3, dim=-1), gg, h), bargs, iters=4)
+        b4_lib = time_ms(torch, sdpa_bwd, [(0,), (1,)], iters=20)
+        bm, bb = bound(f4, by3)
+        fwd.append(dict(shape=[b, n, c, h], max_abs_err=err, limit=lim, ms=b3_ms, plain_ms=b3_plain,
+                        library_ms=b3_lib, library="scaled_dot_product_attention",
+                        bound_ms=bm, bound_by=bb, gflop=f4 / 1e9))
+        say("kernel", name="B3 fused_attention", **fwd[-1])
+        bm, bb = bound(f10, by4)
+        bwd.append(dict(shape=[b, n, c, h], max_abs_err=derr, limit=dlim, ms=b4_ms,
+                        plain_ms=b4_plain, library_ms=b4_lib,
+                        library="torch.autograd.grad through scaled_dot_product_attention "
+                                "(eager, CUDA events; its forward saved beforehand)",
+                        bound_ms=bm, bound_by=bb, gflop=f10 / 1e9))
+        say("kernel", name="B4 fused_attention backward", **bwd[-1])
+        del leaves, outs
+    return fwd, bwd
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """Swap the model's kernel calls for their plain versions (the
-    comparison path of the forward phase only)."""
+    comparison paths of the forward and train phases only)."""
     from countr_tpu_torch.models import vit
+    from countr_tpu_torch.ops.fused_attn import attention_qkv_plain
     from countr_tpu_torch.ops.fused_block import attention_block_plain
     from countr_tpu_torch.ops.fused_ln import layer_norm_plain
 
-    saved = vit.fused_layer_norm, vit.fused_attention_block
-    vit.fused_layer_norm, vit.fused_attention_block = layer_norm_plain, attention_block_plain
+    names = ("fused_layer_norm", "fused_attention_block", "fused_attention_qkv")
+    saved = [getattr(vit, k) for k in names]
+    for k, fn in zip(names, (layer_norm_plain, attention_block_plain, attention_qkv_plain)):
+        setattr(vit, k, fn)
     try:
         yield
     finally:
-        vit.fused_layer_norm, vit.fused_attention_block = saved
+        for k, fn in zip(names, saved):
+            setattr(vit, k, fn)
 
 
 def forward_phase(torch, dev, model):
@@ -237,23 +365,19 @@ def forward_phase(torch, dev, model):
         plain_windows_per_s=WINDOWS / plain_ms * 1e3)
 
 
-def profile_phase(torch, dev, model, steps: int = 3):
-    """Device time by kernel over ``steps`` forwards of the kernel path
-    (torch.profiler), and the device's busy share of the wall time."""
+def profile_run(torch, run, steps: int):
+    """Device time by kernel over ``steps`` calls of ``run`` (after one
+    unprofiled call), from torch.profiler, and the wall ms per call."""
     from torch.profiler import ProfilerActivity, profile
 
-    rng = np.random.default_rng(4)
-    imgs = torch.from_numpy(rng.uniform(0, 1, (WINDOWS, 384, 384, 3)).astype(np.float32)).to(dev)
-    y = torch.zeros((WINDOWS, 3, model.cfg.decoder_embed_dim), device=dev, dtype=torch.bfloat16)
-    with torch.inference_mode():
-        model.forward_tokens(imgs, y)
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                model.forward_tokens(imgs, y)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     rows = []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "device_time_total", None)
@@ -263,15 +387,28 @@ def profile_phase(torch, dev, model, steps: int = 3):
             continue
         if dev_us > 0 and ev.count > 0:
             rows.append((ev.key, dev_us / 1e3 / steps, ev.count // steps))
-    kernels = [r for r in rows if not r[0].startswith("aten::")]
+    # device rows only: ops and annotations (aten::..., Optimizer.step#...)
+    # carry their kernels' time again
+    kernels = [r for r in rows if not r[0].startswith(("aten::", "Optimizer.", "autograd::"))]
     kernels.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in kernels)
-    ours = ("_ln_fwd", "ln_rows_kernel", "gemm_nt_kernel", "attn_kernel")
-    say("profile", forward_wall_ms=wall_ms, device_busy_ms=busy,
-        idle_share=max(0.0, 1 - busy / wall_ms),
+    ours = ("_ln_fwd", "ln_rows_kernel", "gemm_nt_kernel", "attn_kernel", "bwd_stats_kernel",
+            "bwd_dkdv_kernel", "bwd_dq_kernel")
+    return dict(
+        wall_ms=wall_ms, device_busy_ms=busy, idle_share=max(0.0, 1 - busy / wall_ms),
         port_kernels=[{"kernel": k[:90], "ms": ms, "calls": n} for k, ms, n in kernels
                       if any(t in k for t in ours)],
         top=[{"kernel": k[:90], "ms": ms, "calls": n} for k, ms, n in kernels[:14]])
+
+
+def profile_phase(torch, dev, model, steps: int = 3):
+    """The forward's device time by kernel and idle share."""
+    rng = np.random.default_rng(4)
+    imgs = torch.from_numpy(rng.uniform(0, 1, (WINDOWS, 384, 384, 3)).astype(np.float32)).to(dev)
+    y = torch.zeros((WINDOWS, 3, model.cfg.decoder_embed_dim), device=dev, dtype=torch.bfloat16)
+    with torch.inference_mode():
+        say("profile", path="forward", **profile_run(
+            torch, lambda: model.forward_tokens(imgs, y), steps))
 
 
 def synthetic_image(rng, w: int, rect_size):
@@ -295,15 +432,12 @@ def synthetic_image(rng, w: int, rect_size):
 
 def count_phase(torch, model):
     from countr_tpu_torch.engine.inference import CountingEngine
-    from countr_tpu_torch.ops.fused_block import fused_attention_block
-    from countr_tpu_torch.ops.fused_ln import fused_layer_norm
 
     engine = CountingEngine(model, batch_windows=WINDOWS)
     rng = np.random.default_rng(3)
     cases = [(384, (60, 70, 80)), (640, (60, 70, 80)), (1152, (60, 70, 80)), (768, (6, 7, 8))]
     images = [synthetic_image(rng, w, sizes) for w, sizes in cases]
-    fused_layer_norm.launches = 0
-    fused_attention_block.launches = 0
+    reset_counts()
     batches0 = engine.forward_batches
     results = []
     for (img, boxes, rects), (w, _) in zip(images, cases):
@@ -315,15 +449,175 @@ def count_phase(torch, model):
         results.append(r)
         say("count", width=w, count=r.count, raw_count=r.raw_count, e_cnt=r.e_cnt,
             n_windows=r.n_windows, grid_mode=r.grid_mode, ms=ms)
-    launches = {"B1": fused_layer_norm.launches, "B2": fused_attention_block.launches}
+    launches = launch_counts()
     batches = engine.forward_batches - batches0
     if [r.grid_mode for r in results] != [False, False, False, True]:
         raise AssertionError("grid mode must trigger on the tiny-rect image only")
     if results[-1].n_windows != 36:
         raise AssertionError(f"grid image ran {results[-1].n_windows} windows, not 36")
-    if launches != {"B1": 26 * batches, "B2": 18 * batches} or batches == 0:
+    if launches != {"B1": 26 * batches, "B2": 18 * batches, "B3": 0, "B4": 0} or batches == 0:
         raise AssertionError(f"launches {launches} for {batches} window batches")
     say("count_launches", window_batches=batches, **launches)
+    return launches
+
+
+def train_batch(rng, b: int):
+    """A synthetic finetune batch of numpy arrays: [b, 384, 384, 3] images
+    of bright blobs on noise in [0, 1], their densities (a unit dot at
+    each blob's centre, Gaussian-smoothed with sigma 1 as the reference's
+    gaussian_filter, times DENSITY_SCALE 60) and three 64x64 exemplar
+    crops of blobs."""
+    imgs = rng.uniform(0, 0.25, (b, 384, 384, 3)).astype(np.float32)
+    dots = np.zeros((b, 384, 384), np.float32)
+    boxes = np.zeros((b, 3, 64, 64, 3), np.float32)
+    for i in range(b):
+        n = int(rng.integers(20, 60))
+        cy, cx = rng.integers(12, 372, n), rng.integers(12, 372, n)
+        for k in range(n):
+            r = int(rng.integers(4, 10))
+            imgs[i, cy[k] - r:cy[k] + r, cx[k] - r:cx[k] + r] = rng.uniform(0.6, 1.0, 3)
+            dots[i, cy[k], cx[k]] = 1.0
+        for k in range(3):
+            y0, x0 = max(cy[k] - 32, 0), max(cx[k] - 32, 0)
+            y0, x0 = min(y0, 320), min(x0, 320)
+            boxes[i, k] = imgs[i, y0:y0 + 64, x0:x0 + 64]
+    radius = 4  # scipy's truncate 4.0 at sigma 1
+    ker = np.exp(-0.5 * np.arange(-radius, radius + 1) ** 2)
+    ker /= ker.sum()
+    pad = np.pad(dots, ((0, 0), (radius, radius), (radius, radius)), mode="symmetric")
+    rows = sum(ker[j] * pad[:, j:j + 384] for j in range(2 * radius + 1))
+    dens = sum(ker[j] * rows[:, :, j:j + 384] for j in range(2 * radius + 1))
+    return {"image": imgs, "gt_density": (dens * 60.0).astype(np.float32), "boxes": boxes}
+
+
+def launch_counts():
+    from countr_tpu_torch.ops.fused_attn import fused_attention
+    from countr_tpu_torch.ops.fused_block import fused_attention_block
+    from countr_tpu_torch.ops.fused_ln import fused_layer_norm
+
+    return {"B1": fused_layer_norm.launches, "B2": fused_attention_block.launches,
+            "B3": fused_attention.launches, "B4": fused_attention.bwd_launches}
+
+
+def reset_counts():
+    from countr_tpu_torch.ops.fused_attn import fused_attention
+    from countr_tpu_torch.ops.fused_block import fused_attention_block
+    from countr_tpu_torch.ops.fused_ln import fused_layer_norm
+
+    fused_layer_norm.launches = fused_attention_block.launches = 0
+    fused_attention.launches = fused_attention.bwd_launches = 0
+
+
+def train_phase(torch, dev):
+    """The finetune step of the bf16 training build at full width."""
+    from countr_tpu_torch.config import TrainConfig, fast_mode_overrides
+    from countr_tpu_torch.engine import train as engine
+    from countr_tpu_torch.models import build_countr
+
+    over = fast_mode_overrides("bf16", training=True)
+    model = build_countr("mae_vit_base6_patch16", seed=0, training=True, **over)
+    cfg = TrainConfig(batch_size=TRAIN_BATCH, lr=TRAIN_LR, min_lr=TRAIN_LR, warmup_epochs=0)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in train_batch(np.random.default_rng(6), TRAIN_BATCH).items()}
+    labels = engine.frozen_labels(model)
+    trainable = [n for n, _ in model.named_parameters() if labels[n] == "train"]
+
+    # One step's loss and gradients, kernels against plain versions, on
+    # the same weights, batch and mask. The exemplar convs' biases and the
+    # cross-attention key biases have an exact gradient of 0 (an
+    # affine-free InstanceNorm, a softmax follow) and hold fp32 noise.
+    gen = torch.Generator(device=dev).manual_seed(1)
+    mask = engine.loss_mask(384, cfg.loss_mask_p, gen)
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        loss, _ = engine.finetune_loss(model, batch["image"], batch["gt_density"],
+                                       batch["boxes"], 3, mask)
+        loss.backward()
+        params = dict(model.named_parameters())
+        return loss.item(), {n: params[n].grad for n in trainable}
+
+    loss_k, grads_k = loss_and_grads()
+    with plain_kernels():
+        loss_p, grads_p = loss_and_grads()
+    model.zero_grad(set_to_none=True)
+    cosines = {}
+    for n in trainable:
+        a, b = grads_k[n], grads_p[n]
+        if (a is None) != (b is None):
+            raise AssertionError(f"train: {n} has a gradient on one path only")
+        if a is None or n.startswith("decoder_proj") and n.endswith(".bias") \
+                or n.endswith("attn.wk.bias"):
+            continue
+        a, b = a.double().flatten(), b.double().flatten()
+        cosines[n] = float(a @ b / (a.norm() * b.norm()))
+    missing = [n for n in trainable if grads_k[n] is None]
+    if missing != ["shot_token"]:
+        raise AssertionError(f"train: trainable tensors without a gradient at shot 3: {missing}")
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    worst = min(cosines, key=cosines.get)
+    if not rel <= TRAIN_LOSS_REL_TOL or not cosines[worst] >= GRAD_COSINE_MIN:
+        raise AssertionError(f"train: kernel vs plain loss rel {rel}, min cosine "
+                             f"{cosines[worst]} ({worst})")
+    say("train_vs_plain", loss=loss_k, plain_loss=loss_p, loss_rel_diff=rel,
+        loss_rel_limit=TRAIN_LOSS_REL_TOL, min_grad_cosine=cosines[worst],
+        min_cosine_tensor=worst, cosine_limit=GRAD_COSINE_MIN, tensors_compared=len(cosines))
+    del grads_k, grads_p
+
+    # The path itself: 8 steps on the repeated batch, shots 3, 2, 1, 0 twice.
+    state = engine.init_train_state(model, cfg, steps_per_epoch=100, world_batch=TRAIN_BATCH)
+    if {state.schedule(i) for i in range(8)} != {TRAIN_LR}:
+        raise AssertionError("the train phase's learning rate is not constant")
+    mask_gen = torch.Generator(device=dev)
+    step = engine.make_finetune_step(state, cfg, mask_gen)
+    shots = [3, 2, 1, 0] * 2
+    losses, step_ms = [], []
+    torch.cuda.synchronize()
+    reset_counts()
+    for s in shots:
+        mask_gen.manual_seed(2)  # one repeated batch, its loss mask too
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = step(batch, s)
+        end.record()
+        losses.append(float(m["loss"]))
+        step_ms.append(start.elapsed_time(end))
+    launches = launch_counts()
+    per_step = {"B1": 44, "B2": 0, "B3": 18, "B4": 6}
+    ms = float(np.mean(step_ms[1:]))
+    say("train", steps=len(shots), shots=shots, losses=losses, lr=TRAIN_LR, step_ms=step_ms,
+        ms_per_step=ms, images_per_s=TRAIN_BATCH / ms * 1e3, launches=launches,
+        launches_per_step=per_step)
+    if launches != {k: v * len(shots) for k, v in per_step.items()}:
+        raise AssertionError(f"train: launches {launches} over {len(shots)} steps, "
+                             f"expected {per_step} per step")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train: losses {losses}")
+    if not losses[4] < losses[0]:
+        raise AssertionError(f"train: shot-3 loss did not fall: step 1 {losses[0]}, "
+                             f"step 5 {losses[4]}")
+    say("profile", path="train step", **profile_run(torch, lambda: step(batch, 3), 2))
+    del state, step, model
+    torch.cuda.empty_cache()
+
+    # One step with the encoder trained too: B4 runs in all 18 blocks.
+    model = build_countr("mae_vit_base6_patch16", seed=0, training=True,
+                         freeze_encoder=False, **over)
+    state = engine.init_train_state(model, cfg, steps_per_epoch=100, world_batch=TRAIN_BATCH)
+    step = engine.make_finetune_step(state, cfg, torch.Generator(device=dev).manual_seed(3))
+    step(batch, 3)  # warm up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    m = step(batch, 3)
+    loss = float(m["loss"])
+    unfrozen_ms = (time.perf_counter() - t0) * 1e3
+    unfrozen = launch_counts()
+    if unfrozen != {"B1": 44, "B2": 0, "B3": 18, "B4": 18} or not np.isfinite(loss):
+        raise AssertionError(f"train, encoder unfrozen: launches {unfrozen}, loss {loss}")
+    say("train_unfrozen", loss=loss, ms=unfrozen_ms, launches=unfrozen)
+    del state, step, model
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -347,17 +641,25 @@ def main() -> int:
     ln_shapes = ln_phase(torch, dev)
     say("build_done", seconds=time.perf_counter() - t0)
     block_shapes = block_phase(torch, dev)
+    b3_shapes, b4_shapes = attn_phase(torch, dev)
 
     model = build_countr("mae_vit_base6_patch16", seed=0, **fast_mode_overrides("bf16"))
     forward_phase(torch, dev, model)
     profile_phase(torch, dev, model)
-    launches = count_phase(torch, model)
+    count_launches = count_phase(torch, model)
+    del model
+    torch.cuda.empty_cache()
+    train_launches = train_phase(torch, dev)
 
-    def entry(name, route, source, replaces, key, shapes):
+    def entry(name, route, source, replaces, path, shapes):
         main_shape = dict(shapes[0])
+        launches = count_launches if path == "count" else train_launches
+        key = name.split()[0]
         return dict(
             name=name, route=route, source=source, replaces=replaces,
-            launches=launches[key], max_abs_err=main_shape["max_abs_err"],
+            launches=launches[key], launches_path=path,
+            launches_by_path={"count": count_launches[key], "train": train_launches[key]},
+            max_abs_err=main_shape["max_abs_err"],
             max_abs_diff=max(s["max_abs_err"] for s in shapes),
             ms=main_shape["ms"], plain_ms=main_shape["plain_ms"],
             bound_ms=main_shape["bound_ms"], bound_by=main_shape["bound_by"],
@@ -367,9 +669,13 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         entry("B1 fused_layer_norm", "triton", "countr_tpu_torch/ops/fused_ln.py",
-              "countr_tpu/ops/pallas_ln.py:30", "B1", ln_shapes),
+              "countr_tpu/ops/pallas_ln.py:30", "count", ln_shapes),
         entry("B2 fused_attention_block", "cuda", "countr_tpu_torch/csrc/attn_block.cu",
-              "countr_tpu/ops/pallas_block.py:41", "B2", block_shapes),
+              "countr_tpu/ops/pallas_block.py:41", "count", block_shapes),
+        entry("B3 fused_attention", "cuda", "countr_tpu_torch/csrc/attn.cu",
+              "countr_tpu/ops/pallas_attn.py:33", "train", b3_shapes),
+        entry("B4 fused_attention backward", "cuda", "countr_tpu_torch/csrc/attn.cu",
+              "countr_tpu/ops/pallas_attn.py:93", "train", b4_shapes),
     ]}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

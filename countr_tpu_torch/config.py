@@ -1,7 +1,8 @@
 """Typed model configuration (counterpart of ``countr_tpu/config.py``).
 
-Only what the counting path needs: the geometry constants, the CounTR
-config with torch dtypes, and the named presets.
+What the counting and finetune paths need: the geometry constants, the
+CounTR config with torch dtypes, the named presets and the training
+knobs.
 """
 
 from __future__ import annotations
@@ -95,15 +96,55 @@ COUNTR_PRESETS = {
 }
 
 
-def fast_mode_overrides(dtype: str) -> dict:
+def fast_mode_overrides(dtype: str, training: bool = False) -> dict:
     """Config overrides of the ``--dtype`` modes this package carries:
     ``bf16`` (the fast mode: fused kernels, tanh GELU, subpixel head) and
-    ``fp32`` (plain module path, exact)."""
+    ``fp32`` (plain module path, exact). ``training`` turns the fused
+    attention half-block (B2) off and keeps the standalone kernels (B1,
+    B3/B4), as the JAX package's training builds do
+    (cli/common.py:126-130,149)."""
     if dtype == "fp32":
-        return dict(dtype=torch.float32)
-    if dtype == "bf16":
-        return dict(
+        out = dict(dtype=torch.float32)
+    elif dtype == "bf16":
+        out = dict(
             dtype=torch.bfloat16, use_pallas_attention=True,
             approx_gelu=True, subpixel_head=True,
         )
-    raise ValueError(f"unsupported dtype mode {dtype!r} (bf16 or fp32)")
+    else:
+        raise ValueError(f"unsupported dtype mode {dtype!r} (bf16 or fp32)")
+    if training:
+        out["fused_attn_block"] = False
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Shared training-engine knobs.
+
+    Defaults mirror the reference fine-tune script
+    (reference: FSC_finetune_cross.py:30-107, run.sh:11-13).
+    """
+
+    batch_size: int = 8
+    epochs: int = 1000
+    warmup_epochs: int = 10
+    blr: float = 2e-4
+    lr: Optional[float] = None  # resolved as blr * eff_batch / 256
+    min_lr: float = 0.0
+    weight_decay: float = 0.05
+    accum_iter: int = 1
+    seed: int = 0
+    # Loss pixel-mask keep probability (reference:
+    # FSC_finetune_cross.py:290).
+    loss_mask_p: float = 0.8
+    # bf16 activations during training (params/opt state fp32).
+    bf16: bool = True
+    output_dir: str = "./out"
+    ckpt_every_epochs: int = 50
+    log_every_steps: int = 50
+
+    def resolved_lr(self, world_batch: int) -> float:
+        if self.lr is not None:
+            return self.lr
+        # reference: FSC_finetune_cross.py:220-221 (lr = blr * eff/256)
+        return self.blr * world_batch / 256.0

@@ -14,11 +14,14 @@ from countr_tpu_torch.models.init import init_countr_
 
 def build_countr(
     name: str = "mae_vit_base6_patch16", *, device=None, seed: int = 0,
-    **overrides,
+    training: bool = False, **overrides,
 ) -> CounTR:
     """Build a preset (with config overrides), initialised at random from
-    ``torch.Generator().manual_seed(seed)``, in eval mode on ``device``
-    (None = the CUDA card; raises when there is none)."""
+    ``torch.Generator().manual_seed(seed)``, on ``device`` (None = the
+    CUDA card; raises when there is none), in eval mode, or in train mode
+    with ``training``. The training build's overrides, which keep the
+    forward-only fused half-block B2 off, are
+    ``config.fast_mode_overrides(dtype, training=True)``."""
     dev = resolve_device(device)
     cfg = COUNTR_PRESETS[name]
     if overrides:
@@ -27,7 +30,7 @@ def build_countr(
         disable_tf32()
     model = CounTR(cfg)
     init_countr_(model, torch.Generator().manual_seed(seed))
-    return model.to(dev).eval()
+    return model.to(dev).train(training)
 
 
 __all__ = ["CounTR", "build_countr"]

@@ -16,6 +16,8 @@ forward contract:
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -64,7 +66,8 @@ class CrossAttentionBlock(nn.Module):
     """self-attn -> cross-attn -> MLP, each pre-norm residual; only the
     query side is normalised before cross-attention
     (reference: models_crossvit.py:130-156). The self-attention branch
-    takes kernel B2 behind the same gate as the encoder Block."""
+    takes kernel B2, or its core B3/B4, behind the same gates as the
+    encoder Block."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  ln_eps: float = 1e-6, dtype: torch.dtype = torch.float32,
@@ -75,7 +78,7 @@ class CrossAttentionBlock(nn.Module):
         self.use_kernels = use_kernels
         self.fused_block = fused_block
         self.norm0 = LayerNorm(dim, ln_eps, dtype)
-        self.selfattn = SelfAttention(dim, num_heads, dtype)
+        self.selfattn = SelfAttention(dim, num_heads, dtype, use_kernels)
         self.norm1 = LayerNorm(dim, ln_eps, dtype)
         self.attn = CrossAttention(dim, num_heads, dtype)
         self.norm2 = LayerNorm(dim, ln_eps, dtype)
@@ -221,7 +224,7 @@ class CounTR(nn.Module):
         b = boxes.shape[0]
         dd = self.cfg.decoder_embed_dim
         if shot_num == 0:
-            return self.shot_token.detach().to(self.dec_dtype).expand(b, 1, dd)
+            return self.shot_token.to(self.dec_dtype).expand(b, 1, dd)
         sel = boxes[:, :shot_num].to(self.dec_dtype)
         flat = sel.reshape(b * shot_num, *boxes.shape[2:])
         convs = [getattr(self, f"decoder_proj{k}")[0] for k in (1, 2, 3, 4)]
@@ -243,10 +246,12 @@ class CounTR(nn.Module):
 
     def forward_tokens(self, imgs: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """Forward with precomputed exemplar tokens (the batched-window
-        inference path)."""
-        latent = self.encode(imgs)
-        if self.cfg.freeze_encoder:
-            latent = latent.detach()
+        inference path). A frozen encoder runs under ``no_grad``: JAX's
+        stop_gradient, and the reference's torch.no_grad encoder
+        (models_mae_cross.py:204-205), so autograd keeps none of its
+        activations."""
+        with torch.no_grad() if self.cfg.freeze_encoder else contextlib.nullcontext():
+            latent = self.encode(imgs)
         return self.decode_tokens(latent, y)
 
     def forward(self, imgs: torch.Tensor, boxes: torch.Tensor,

@@ -4,13 +4,14 @@ Parameters keep the reference state_dict layout (timm 0.4 Block,
 reference: models_crossvit.py:46-156): ``norm1``/``norm2`` LayerNorms,
 ``attn.qkv``/``attn.proj`` and ``mlp.fc1``/``mlp.fc2`` Linears with
 [out, in] weights. Parameters stay fp32; each module computes in its
-``dtype`` with the weights cast at use (cached, see ``cast_param``), and
-adds the bias after the product in the compute dtype, as flax's Dense
-does.
+``dtype`` with the weights cast at use (see ``cast_param``), and adds
+the bias after the product in the compute dtype, as flax's Dense does.
 
-In the bf16 fast mode the LayerNorms take kernel B1
-(ops/fused_ln.py) and a block's whole attention branch takes kernel B2
-(ops/fused_block.py), behind the JAX package's gates.
+In the bf16 fast mode the LayerNorms take kernel B1 (ops/fused_ln.py),
+and a block's attention takes either kernel B2 for the whole branch
+(ops/fused_block.py; inference builds) or kernels B3/B4 for the
+attention core (ops/fused_attn.py; training builds, where B2 is off),
+behind the JAX package's gates.
 """
 
 from __future__ import annotations
@@ -20,16 +21,22 @@ import torch.nn.functional as F
 from torch import nn
 
 from countr_tpu_torch.ops.attention import multi_head_attention
+from countr_tpu_torch.ops.fused_attn import fused_attention_qkv
 from countr_tpu_torch.ops.fused_block import fused_attention_block
 from countr_tpu_torch.ops.fused_ln import fused_layer_norm
 
 
 def cast_param(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``p`` in ``dtype``, cached on the parameter until it changes: the
-    bf16 copy of a weight is made once, not at every forward. The values
-    are the same as a cast at use."""
+    """``p`` in ``dtype``. Under autograd (grad mode on and ``p``
+    requiring grad) the cast is made at use and stays differentiable: the
+    gradient comes back to the fp32 parameter, as flax's cast-through
+    VJP does. Otherwise (inference, ``no_grad``, a frozen parameter) the
+    copy is cached on the parameter until it changes, so a bf16 weight is
+    made once, not at every forward; the values are the same."""
     if p.dtype == dtype:
         return p
+    if p.requires_grad and torch.is_grad_enabled():
+        return p.to(dtype)
     hit = getattr(p, "_countr_cast", None)
     key = (p._version, p.device, dtype)
     if hit is None or hit[0] != key:
@@ -112,19 +119,28 @@ class LayerNorm(nn.LayerNorm):
 
 
 class SelfAttention(nn.Module):
-    """Fused-qkv MHSA (reference: models_crossvit.py:69-94)."""
+    """Fused-qkv MHSA (reference: models_crossvit.py:69-94).
 
-    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32):
+    With ``use_kernels`` in a bf16 stage the attention core runs as
+    kernels B3 (forward) and B4 (backward) on the packed qkv, the JAX
+    gate of models/vit.py:175-178; otherwise the plain core."""
+
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32,
+                 use_kernels: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
+        self.use_kernels = use_kernels
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        q, k, v = dense(x, self.qkv, self.dtype).chunk(3, dim=-1)
-        return dense(multi_head_attention(q, k, v, self.num_heads), self.proj,
-                     self.dtype)
+        qkv = dense(x, self.qkv, self.dtype)
+        if self.use_kernels and self.dtype == torch.bfloat16:
+            y = fused_attention_qkv(qkv, self.num_heads)
+        else:
+            y = multi_head_attention(*qkv.chunk(3, dim=-1), self.num_heads)
+        return dense(y, self.proj, self.dtype)
 
 
 def fused_attn_branch(x: torch.Tensor, norm: LayerNorm, attn: SelfAttention):
@@ -150,7 +166,8 @@ class Block(nn.Module):
     """Pre-norm transformer encoder block (timm 0.4 Block semantics).
 
     With ``use_kernels`` and ``fused_block`` in a bf16 stage, the whole
-    attention branch runs as kernel B2; the MLP branch stays modules."""
+    attention branch runs as kernel B2; with ``use_kernels`` alone, the
+    attention core runs as B3/B4. The MLP branch stays modules."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  ln_eps: float = 1e-6, dtype: torch.dtype = torch.float32,
@@ -161,7 +178,7 @@ class Block(nn.Module):
         self.use_kernels = use_kernels
         self.fused_block = fused_block
         self.norm1 = LayerNorm(dim, ln_eps, dtype)
-        self.attn = SelfAttention(dim, num_heads, dtype)
+        self.attn = SelfAttention(dim, num_heads, dtype, use_kernels)
         self.norm2 = LayerNorm(dim, ln_eps, dtype)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, approx_gelu)
 

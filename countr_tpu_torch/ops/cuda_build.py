@@ -3,11 +3,12 @@ library with a plain C interface and load it with ctypes.
 
 The library is compiled at first use with ``nvcc`` for ``sm_90a`` into
 ``countr_tpu_torch/_build/`` (listed in .gitignore), named after the hash
-of the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. Each build writes to a temporary name
-and is renamed into place, so concurrent processes never load a half
-written file. ``nvcc`` is ``$CUDA_HOME/bin/nvcc``, else the one on PATH,
-else ``/usr/local/cuda/bin/nvcc``.
+of the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is. Each
+build writes to a temporary name and is renamed into place, so
+concurrent processes never load a half written file. ``nvcc`` is
+``$CUDA_HOME/bin/nvcc``, else the one on PATH, else
+``/usr/local/cuda/bin/nvcc``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -51,8 +53,9 @@ def build_library(name: str):
     if name in _LOADED:
         return _LOADED[name]
     src = CSRC_DIR / f"{name}.cu"
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / f"lib{name}_{digest}.so"
@@ -77,3 +80,10 @@ def build_library(name: str):
     record = {"path": str(out), "seconds": seconds, "log": log}
     _LOADED[name] = (ctypes.CDLL(str(out)), record)
     return _LOADED[name]
+
+
+def build_libraries(names) -> dict:
+    """``build_library`` for several sources at once: one nvcc each, all
+    started together. Returns ``{name: (lib, record)}``."""
+    with ThreadPoolExecutor(len(names)) as pool:
+        return dict(zip(names, pool.map(build_library, names)))

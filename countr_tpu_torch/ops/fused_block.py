@@ -18,8 +18,13 @@ which are the TPU kernel's.
 On a CPU tensor the wrapper runs ``attention_block_plain`` — the JAX
 package's ``_unfused_reference`` with the kernel's softmax (exp2 of
 logits scaled by hd^-0.5*log2(e), unnormalised P cast to the value
-dtype, division after PV). On a CUDA tensor it launches the kernel or
-raises. ``fused_attention_block.launches`` counts kernel launches.
+dtype, division after PV; ``fused_attn.attention_exp2``). On a CUDA
+tensor it launches the kernel or raises; it also raises under autograd
+(grad enabled and an input requiring grad), because the kernel's
+backward (``pallas_block.py:164-208 _fused_block_bwd``) is not ported
+yet and its output would carry no gradient. Training builds keep B2 off
+(``config.fast_mode_overrides(..., training=True)``).
+``fused_attention_block.launches`` counts kernel launches.
 
 Weights are in torch's layout: ``w_qkv`` [3C, C] (rows q | k | v, head
 h at rows h*hd of each), ``w_proj`` [C, C].
@@ -33,28 +38,10 @@ import torch
 import torch.nn.functional as F
 
 from countr_tpu_torch.ops.cuda_build import build_library
+from countr_tpu_torch.ops.fused_attn import HEAD_DIMS, LOG2E, attention_exp2
 from countr_tpu_torch.ops.norms import layer_norm
 
-LOG2E = 1.4426950408889634
-HEAD_DIMS = (16, 32, 64)
 MAX_C = 2048  # the LN pass holds a row in one warp's registers
-
-
-def attention_exp2(q, k, v, num_heads: int) -> torch.Tensor:
-    """The TPU kernel's attention core: fp32 logits scaled by
-    hd^-0.5*log2(e), exp2 softmax numerator, P cast to the value dtype
-    for the PV product (fp32 accumulation), division by the fp32 row sum
-    after PV. q/k/v [B, N, C] -> [B, N, C]."""
-    b, n, c = q.shape
-    hd = c // num_heads
-    qh = q.reshape(b, n, num_heads, hd).transpose(1, 2).float()
-    kh = k.reshape(b, -1, num_heads, hd).transpose(1, 2).float()
-    vh = v.reshape(b, -1, num_heads, hd).transpose(1, 2)
-    logits = torch.matmul(qh, kh.transpose(-1, -2)) * (hd ** -0.5 * LOG2E)
-    p = torch.exp2(logits - logits.amax(dim=-1, keepdim=True))
-    s = p.sum(dim=-1, keepdim=True)
-    out = torch.matmul(p.to(v.dtype).float(), vh.float()) / s
-    return out.to(q.dtype).transpose(1, 2).reshape(b, n, c)
 
 
 def attention_block_plain(
@@ -162,6 +149,14 @@ def fused_attention_block(
         )
     if x.device.type != "cuda":
         raise ValueError(f"fused_attention_block: unsupported device {x.device}")
+    params = (x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in params):
+        raise RuntimeError(
+            "fused_attention_block: kernel B2 has no backward yet (the TPU "
+            "kernel's is pallas_block.py:164-208 _fused_block_bwd); run it "
+            "under torch.no_grad()/inference_mode, or build with "
+            "fused_attn_block=False for training"
+        )
     return _launch(
         x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads, eps
     )

@@ -20,9 +20,14 @@ Numerics follow ``_ln_kernel`` exactly: x32 = x.float(); mean;
 var = mean((x32 - mean)^2); (x32 - mean) * rsqrt(var + eps);
 * scale32 + bias32; cast to x.dtype.
 
-On a CPU tensor the wrapper runs ``layer_norm_plain`` (the same
-arithmetic in PyTorch); on a CUDA tensor it launches the kernel or
-raises. ``fused_layer_norm.launches`` counts kernel launches.
+The wrapper is a ``torch.autograd.Function``: its forward is the
+kernel on a CUDA tensor and ``layer_norm_plain`` (the same arithmetic in
+PyTorch) on a CPU tensor; its backward, on either, is the VJP of
+``layer_norm_plain`` recomputed from the saved inputs, as the TPU
+kernel's custom VJP runs XLA's LN VJP (``pallas_ln.py:81-86``); the JAX
+package has no backward kernel for it. On a CUDA tensor the forward
+launches the kernel or raises. ``fused_layer_norm.launches`` counts
+kernel launches.
 """
 
 import torch
@@ -95,16 +100,34 @@ def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y
 
 
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps: float):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.eps = eps
+        if x.device.type == "cuda":
+            return _launch(x, scale, bias, eps)
+        return layer_norm_plain(x, scale, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            y = layer_norm_plain(*inputs, ctx.eps)
+            grads = iter(torch.autograd.grad(y, wanted, g))
+        return (*(next(grads) if t.requires_grad else None for t in inputs), None)
+
+
 def fused_layer_norm(
     x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-6
 ) -> torch.Tensor:
-    """LayerNorm over the last dim: the Triton kernel on a CUDA tensor,
-    the plain version on a CPU tensor."""
-    if x.device.type == "cpu":
-        return layer_norm_plain(x, scale, bias, eps)
-    if x.device.type != "cuda":
+    """LayerNorm over the last dim, differentiable: the Triton kernel on
+    a CUDA tensor, the plain version on a CPU tensor."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_layer_norm: unsupported device {x.device}")
-    return _launch(x, scale, bias, eps)
+    return _LayerNorm.apply(x, scale, bias, eps)
 
 
 fused_layer_norm.launches = 0
