@@ -5,14 +5,20 @@
 Phases, one line each on stdout:
   1. environment: the card and its power limit;
   2. build: the CUDA libraries from countr_tpu_torch/csrc (nvcc, sm_90a;
-     attn_block.cu for B2 and attn.cu for B3/B4, one nvcc each, started
-     together) and the Triton kernel's first compile;
-  3. kernels: each hand-written kernel (B1-B4) against its plain PyTorch
-     version on the card, at the main paths' shapes, bf16 — max|d|, and
-     device times (calls replayed from a CUDA graph, between CUDA events)
-     of the kernel, its plain version and one PyTorch library call or
-     composition as a yardstick, beside the card's bound for the same
-     work;
+     attn_block.cu for B2, attn.cu for B3/B4, mlp_block.cu for B5 and
+     cross_block.cu for B6, one nvcc each, started together) and the
+     Triton kernel's first compile;
+  3. kernels: each hand-written kernel (B1-B6) and B2's backward against
+     its plain PyTorch version on the card, at the main paths' shapes
+     (B5 and B6, which no model path runs, at the A/B scripts' shapes;
+     their checked calls, one per shape, are the "ab" path, counted with
+     the counters set to 0 just before each and read just after),
+     bf16 — max|d| (B2's backward: each gradient's cosine and max|d| over
+     max|ref|), and device times (calls replayed from a CUDA graph,
+     between CUDA events) of the kernel, its plain version and one
+     PyTorch library call or composition as a yardstick, beside the
+     card's bound for the same work; B3/B4 also at the MAE encoder's
+     N = 288;
   4. forward: full-width mae_vit_base6_patch16 in the bf16 fast mode,
      random weights from torch.Generator seed 0, 16 windows — the kernel
      path against the same model with every kernel swapped for its
@@ -31,7 +37,17 @@ Phases, one line each on stdout:
      rate, with the counters set to 0 just before and read just after
      (B1 44, B3 18, B4 6 and B2 0 per step), ms per step and images/s;
      a torch.profiler pass over two steps (the device's idle share); one
-     step with the encoder unfrozen (B4 18).
+     step with the encoder unfrozen (B4 18);
+  7. pretrain: full-width mae_vit_base_patch16 (12x768 encoder on the
+     288 visible tokens, 8x512 decoder), bf16, batch 16, mask ratio 0.5,
+     random weights from seed 0, for both builds — the pretrain CLI's (B1,
+     B3/B4, B2 off) and the config's default (B2, its backward through
+     B3/B4) — one step's loss and gradients against the all-plain step on
+     the same weights, images and noise; 8 steps on one repeated batch and
+     noise at a constant learning rate, with the counters set to 0 just
+     before and read just after (B1 42, B3 20, B4 20, B2 0 per step; with
+     B2 on: B2 20, B1 22, B3 20, B4 20), ms per step and images/s; a
+     torch.profiler pass over two steps.
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failed check raises: nonzero
 exit code and no result line. Needs a CUDA device; uses no JAX.
@@ -73,6 +89,12 @@ TRAIN_BATCH = 8  # cli/finetune.py:35
 # first steps move every weight by about lr, which the real recipe's
 # warmup avoids.
 TRAIN_LR = 2e-4 * TRAIN_BATCH / 256
+PRETRAIN_BATCH = 16  # cli/pretrain.py:38
+# The pretrain phase's learning rate, held constant: the pretrain CLI's
+# peak rate at batch 16, blr 1.5e-4 * 16 / 256 (cli/pretrain.py:41,
+# FSC_pretrain.py's scaling). The real recipe reaches it after a 10-epoch
+# warmup; eight Adam steps at it move every weight by about 1e-5.
+PRETRAIN_LR = 1.5e-4 * PRETRAIN_BATCH / 256
 
 
 def say(phase: str, **kv) -> None:
@@ -136,6 +158,13 @@ def graph_ms(torch, fn, arg_sets, iters: int = 16, replays: int = 3) -> float:
     return ms
 
 
+def bound(flops: float, moved: float):
+    """The least time the card could take for ``flops`` bf16 tensor-core
+    operations moving ``moved`` bytes: (ms, "operations" or "bytes")."""
+    tf, tb = flops / H100_BF16_FLOPS, moved / H100_BYTES_PER_S
+    return max(tf, tb) * 1e3, "operations" if tf > tb else "bytes"
+
+
 def max_abs(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -147,14 +176,15 @@ def attn_limit(ref) -> float:
 
 
 def phase_build():
-    from countr_tpu_torch.ops import fused_attn, fused_block
+    from countr_tpu_torch.ops import fused_attn, fused_block, fused_cross, fused_mlp
     from countr_tpu_torch.ops.cuda_build import build_libraries
 
+    libs = (("attn_block", ("B2", fused_block)), ("attn", ("B3 B4", fused_attn)),
+            ("mlp_block", ("B5", fused_mlp)), ("cross_block", ("B6", fused_cross)))
     t0 = time.perf_counter()
-    built = build_libraries(["attn_block", "attn"])
+    built = build_libraries([name for name, _ in libs])
     wall = time.perf_counter() - t0
-    for name, (kernels, module) in (("attn_block", ("B2", fused_block)),
-                                    ("attn", ("B3 B4", fused_attn))):
+    for name, (kernels, module) in libs:
         rec = module.build()  # binds the library built above
         say("build", kernel=kernels, source=f"countr_tpu_torch/csrc/{name}.cu",
             nvcc_s=built[name][1]["seconds"], wall_s=wall, library=rec["path"],
@@ -228,16 +258,14 @@ def block_phase(torch, dev):
         moved = 2 * (b * n * c * 2) + (4 * c * c + 4 * c) * 2 + 2 * c * 4
         args = [(x,) for x in xs]
         kernel = lambda x: fused_attention_block(x, lns, lnb, *w, h, 1e-6)  # noqa: E731
+        bm, bb = bound(flops, moved)
         shapes.append(dict(
             shape=[b, n, c, h], max_abs_err=err,
             ms=graph_ms(torch, kernel, args),
             plain_ms=graph_ms(torch, lambda x: attention_block_plain(x, lns, lnb, *w, h, 1e-6),
                               args, iters=4),
             library_ms=graph_ms(torch, library, args),
-            bound_ms=max(flops / H100_BF16_FLOPS, moved / H100_BYTES_PER_S) * 1e3,
-            bound_by="operations" if flops / H100_BF16_FLOPS > moved / H100_BYTES_PER_S
-            else "bytes",
-            gflop=flops / 1e9,
+            bound_ms=bm, bound_by=bb, gflop=flops / 1e9,
             eager_ms=time_ms(torch, kernel, args),
         ))
         say("kernel", name="B2 fused_attention_block", **shapes[-1])
@@ -246,7 +274,9 @@ def block_phase(torch, dev):
 
 def attn_phase(torch, dev):
     """B3 and B4 at the train step's shapes: [8, 576, 512] with 16 heads
-    (decoder) and [8, 576, 768] with 12 (encoder), packed qkv."""
+    (decoder) and [8, 576, 768] with 12 (encoder), and at the pretrain
+    encoder's [16, 288, 768] with 12 (the 288 visible tokens of a 0.5
+    mask); packed qkv."""
     import torch.nn.functional as F
     from countr_tpu_torch.ops.fused_attn import (
         attention_bwd_plain, attention_exp2, fused_attention_bwd, fused_attention_qkv,
@@ -255,7 +285,8 @@ def attn_phase(torch, dev):
     rng = np.random.default_rng(5)
     bf = torch.bfloat16
     fwd, bwd = [], []
-    for b, n, c, h in ((TRAIN_BATCH, 576, 512, 16), (TRAIN_BATCH, 576, 768, 12)):
+    for b, n, c, h in ((TRAIN_BATCH, 576, 512, 16), (TRAIN_BATCH, 576, 768, 12),
+                       (PRETRAIN_BATCH, 288, 768, 12)):
         hd = c // h
 
         def t(*shape):
@@ -292,10 +323,6 @@ def attn_phase(torch, dev):
         f4, f10 = 4 * b * n * n * c, 10 * b * n * n * c
         by3, by4 = 4 * b * n * c * 2, 7 * b * n * c * 2
 
-        def bound(flops, moved):
-            tf, tb = flops / H100_BF16_FLOPS, moved / H100_BYTES_PER_S
-            return max(tf, tb) * 1e3, "operations" if tf > tb else "bytes"
-
         with torch.no_grad():
             args = [(x,) for x in qkvs]
             bargs = list(zip(qkvs, gs))
@@ -321,6 +348,222 @@ def attn_phase(torch, dev):
         say("kernel", name="B4 fused_attention backward", **bwd[-1])
         del leaves, outs
     return fwd, bwd
+
+
+def randn_on(torch, rng, dev, shape, scale=1.0, off=0.0, dtype=None):
+    """scale * N(0, 1) + off from numpy, on ``dev`` in ``dtype`` (bf16)."""
+    a = rng.standard_normal(shape).astype(np.float32) * scale + off
+    return torch.from_numpy(a).to(dev, dtype or torch.bfloat16)
+
+
+def ab_call(torch, fn, key: str, ab: dict):
+    """One call ``fn()`` of a fused branch's public entry, as the A/B
+    scripts make it, with the launch counters set to 0 just before and
+    read just after: it must launch kernel ``key`` once and nothing else.
+    Adds the counts to ``ab``, the "ab" path's, and returns the output."""
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts != {k: int(k == key) for k in counts}:
+        raise AssertionError(f"ab path: one {key} call launched {counts}")
+    for k, v in counts.items():
+        ab[k] = ab.get(k, 0) + v
+    return out
+
+
+def mlp_phase(torch, dev, ab: dict):
+    """B5 at scripts/ab_fused_block.py's shapes, 16 windows: the encoder's
+    [16, 576, 768] with hidden 3072 (tanh and erf GELU) and the MAE
+    decoder's [16, 576, 512] with hidden 2048 (tanh). No model path runs
+    it (as in the JAX package): the checked call of each shape is the "ab"
+    path's, counted into ``ab``."""
+    import torch.nn.functional as F
+    from countr_tpu_torch.ops.fused_mlp import fused_mlp_block, mlp_block_plain
+
+    rng = np.random.default_rng(7)
+    f32 = torch.float32
+    shapes = []
+    for b, n, c, hid, approx in ((WINDOWS, 576, 768, 3072, True), (WINDOWS, 576, 768, 3072, False),
+                                 (WINDOWS, 576, 512, 2048, True)):
+        xs = [randn_on(torch, rng, dev, (b, n, c)) for _ in range(4)]
+        lns = randn_on(torch, rng, dev, (c,), 0.05, 1.0, f32)
+        lnb = randn_on(torch, rng, dev, (c,), 0.05, 0.0, f32)
+        w = [randn_on(torch, rng, dev, s, 0.05) for s in ((hid, c), (hid,), (c, hid), (c,))]
+        got = ab_call(torch, lambda: fused_mlp_block(xs[0], lns, lnb, *w, 1e-6, approx),
+                      "B5", ab)
+        want = mlp_block_plain(xs[0], lns, lnb, *w, 1e-6, approx)
+        err = max_abs(got, want)
+        lim = BLOCK_TOL * max(1.0, float(want.float().abs().max()))
+        if not err <= lim:
+            raise AssertionError(f"B5 [{b},{n},{c}] hidden {hid} max|d| {err} > {lim}")
+        lns_b, lnb_b = lns.to(torch.bfloat16), lnb.to(torch.bfloat16)
+        gelu = "tanh" if approx else "none"
+
+        def library(x):
+            h = F.gelu(F.linear(F.layer_norm(x, (c,), lns_b, lnb_b, 1e-6), w[0], w[1]),
+                       approximate=gelu)
+            return x + F.linear(h, w[2], w[3])
+
+        m = b * n
+        bm, bb = bound(4 * m * c * hid, 2 * m * c * 2 + 2 * c * hid * 2 + (hid + c) * 2 + 2 * c * 4)
+        args = [(x,) for x in xs]
+        shapes.append(dict(
+            shape=[b, n, c, hid], gelu="tanh" if approx else "erf", max_abs_err=err, limit=lim,
+            ms=graph_ms(torch, lambda x: fused_mlp_block(x, lns, lnb, *w, 1e-6, approx), args),
+            plain_ms=graph_ms(torch, lambda x: mlp_block_plain(x, lns, lnb, *w, 1e-6, approx),
+                              args, iters=4),
+            library_ms=graph_ms(torch, library, args),
+            library="F.layer_norm + F.linear + F.gelu + F.linear + add",
+            bound_ms=bm, bound_by=bb, gflop=4 * m * c * hid / 1e9))
+        say("kernel", name="B5 fused_mlp_block", **shapes[-1])
+    return shapes
+
+
+def cross_phase(torch, dev, ab: dict):
+    """B6 at scripts/ab_cross_block.py's decoder geometry, 16 windows:
+    [16, 576, 512], 16 heads, over ny 3 (three exemplars) and ny 1 (zero
+    shot: the shot token). No model path runs it (as in the JAX
+    package): the checked call of each ny is the "ab" path's, counted into
+    ``ab``."""
+    import torch.nn.functional as F
+    from countr_tpu_torch.ops.fused_cross import cross_block_plain, fused_cross_attention_block
+
+    rng = np.random.default_rng(8)
+    f32 = torch.float32
+    b, n, c, h = WINDOWS, 576, 512, 16
+    hd = c // h
+    shapes = []
+    for ny in (3, 1):
+        xs = [randn_on(torch, rng, dev, (b, n, c)) for _ in range(4)]
+        k, v = (randn_on(torch, rng, dev, (b, ny, c)) for _ in range(2))
+        lns = randn_on(torch, rng, dev, (c,), 0.05, 1.0, f32)
+        lnb = randn_on(torch, rng, dev, (c,), 0.05, 0.0, f32)
+        wq, bq, wp, bp = (randn_on(torch, rng, dev, s, 0.05) for s in ((c, c), (c,), (c, c), (c,)))
+
+        def kernel(x):
+            return fused_cross_attention_block(x, lns, lnb, wq, bq, k, v, wp, bp, h, 1e-6)
+
+        def plain(x):
+            return cross_block_plain(x, lns, lnb, wq, bq, k, v, wp, bp, h, 1e-6)
+
+        lns_b, lnb_b = lns.to(torch.bfloat16), lnb.to(torch.bfloat16)
+        kh, vh = k.view(b, ny, h, hd), v.view(b, ny, h, hd)
+
+        def library(x):
+            q = F.linear(F.layer_norm(x, (c,), lns_b, lnb_b, 1e-6), wq, bq).view(b, n, h, hd)
+            p = torch.softmax(torch.einsum("bqhd,bkhd->bqhk", q, kh) * hd ** -0.5, dim=-1)
+            att = torch.einsum("bqhk,bkhd->bqhd", p, vh).reshape(b, n, c)
+            return x + F.linear(att, wp, bp)
+
+        got = ab_call(torch, lambda: kernel(xs[0]), "B6", ab)
+        want = plain(xs[0])
+        err = max_abs(got, want)
+        lim = BLOCK_TOL * max(1.0, float(want.float().abs().max()))
+        if not err <= lim:
+            raise AssertionError(f"B6 [{b},{n},{c}]x{h} ny {ny} max|d| {err} > {lim}")
+        m = b * n
+        flops = 4 * m * c * c + 4 * m * ny * c
+        bm, bb = bound(flops, 2 * m * c * 2 + 2 * b * ny * c * 2 + 2 * c * c * 2 + 2 * c * 2
+                       + 2 * c * 4)
+        args = [(x,) for x in xs]
+        shapes.append(dict(
+            shape=[b, n, c, h], ny=ny, max_abs_err=err, limit=lim,
+            ms=graph_ms(torch, kernel, args), plain_ms=graph_ms(torch, plain, args, iters=4),
+            library_ms=graph_ms(torch, library, args),
+            library="F.layer_norm + F.linear + einsum softmax einsum + F.linear + add",
+            bound_ms=bm, bound_by=bb, gflop=flops / 1e9))
+        say("kernel", name="B6 fused_cross_attention_block", **shapes[-1])
+    return shapes
+
+
+def cosine(a, b) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def block_bwd_phase(torch, dev):
+    """B2's backward at B2's shapes: the gradients of the kernel path (B2
+    forward; LN and qkv recomputed, B3, B4) against autograd through the
+    plain version, from fp32 weights; the backward alone
+    (``attention_block_bwd``, which the Function's backward calls) timed by
+    replaying it from a CUDA graph; forward and
+    backward together timed for the kernel path, the plain version and a
+    library composition (LN + linear + SDPA + linear), each graph-replayed."""
+    import torch.nn.functional as F
+    from countr_tpu_torch.ops.fused_block import (
+        attention_block_bwd, attention_block_plain, fused_attention_block,
+    )
+
+    rng = np.random.default_rng(9)
+    f32, bf = torch.float32, torch.bfloat16
+    names = ("x", "ln_scale", "ln_bias", "w_qkv", "b_qkv", "w_proj", "b_proj")
+    shapes = []
+    for b, n, c, h in ((WINDOWS, 576, 768, 12), (WINDOWS, 576, 512, 16)):
+        hd = c // h
+        xs = [randn_on(torch, rng, dev, (b, n, c)).requires_grad_(True) for _ in range(2)]
+        gs = [randn_on(torch, rng, dev, (b, n, c)) for _ in range(2)]
+        w = [randn_on(torch, rng, dev, (c,), 0.05, 1.0, f32),
+             randn_on(torch, rng, dev, (c,), 0.05, 0.0, f32)]
+        w += [randn_on(torch, rng, dev, s, 0.05, 0.0, f32)
+              for s in ((3 * c, c), (3 * c,), (c, c), (c,))]
+        leaves = [t.detach().clone().requires_grad_(True) for t in (xs[0], *w)]
+
+        def grads_of(fn):
+            for t in leaves:
+                t.grad = None
+            fn(*leaves, h, 1e-6).backward(gs[0])
+            return [t.grad.clone() for t in leaves]
+
+        got = grads_of(fused_attention_block)
+        torch.cuda.synchronize()
+        want = grads_of(attention_block_plain)
+        cos = {k: cosine(a, r) for k, a, r in zip(names, got, want)}
+        rel = {k: max_abs(a, r) / float(r.float().abs().max())
+               for k, a, r in zip(names, got, want)}
+        worst = min(cos, key=cos.get)
+        if not cos[worst] >= GRAD_COSINE_MIN:
+            raise AssertionError(f"B2 backward [{b},{n},{c}]x{h}: cosine {cos[worst]} ({worst})")
+
+        # the backward alone, every gradient, on the kernel path
+        bwd_ms = graph_ms(torch, lambda i: attention_block_bwd(gs[i], xs[i], *w, h, 1e-6, True),
+                          [(0,), (1,)])
+
+        for t in w:
+            t.requires_grad_(True)
+
+        def fwd_bwd(fn):
+            return lambda i: torch.autograd.grad(fn(xs[i], *w, h, 1e-6), (xs[i], *w), gs[i])
+
+        def library(x, lns, lnb, wqkv, bqkv, wproj, bproj, heads, eps):
+            xn = F.layer_norm(x, (c,), lns.to(bf), lnb.to(bf), eps)
+            q, k, v = F.linear(xn, wqkv.to(bf), bqkv.to(bf)).view(b, n, 3, heads, hd) \
+                .permute(2, 0, 3, 1, 4)
+            att = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(b, n, c)
+            return x + F.linear(att, wproj.to(bf), bproj.to(bf))
+
+        args = [(0,), (1,)]
+        m = b * n
+        # The work the gradients need: the qkv recompute, datt, dWproj,
+        # dWqkv and dxn (22·M·C²); QK^T once, PV for the attention output
+        # (dWproj = g^T att) and B4's dP, dV, dK, dQ (12·B·N²·C). B3's
+        # recompute of QK^T beside B4's own is the design's overhead, not
+        # counted.
+        flops = 22 * m * c * c + 12 * b * n * n * c
+        # x and g in, dx out (bf16); fp32 weights in, fp32 gradients out
+        moved = 3 * m * c * 2 + (4 * c * c + 4 * c + 2 * c) * 8
+        bm, bb = bound(flops, moved)
+        shapes.append(dict(
+            shape=[b, n, c, h], min_cosine=cos[worst], min_cosine_tensor=worst,
+            cosines=cos, max_rel_err=max(rel.values()), rel_errs=rel, ms=bwd_ms,
+            fwd_bwd_ms=graph_ms(torch, fwd_bwd(fused_attention_block), args, iters=4),
+            plain_fwd_bwd_ms=graph_ms(torch, fwd_bwd(attention_block_plain), args, iters=2),
+            library_fwd_bwd_ms=graph_ms(torch, fwd_bwd(library), args, iters=4),
+            library="autograd through F.layer_norm + F.linear + SDPA + F.linear, forward and "
+                    "backward",
+            bound_ms=bm, bound_by=bb, gflop=flops / 1e9))
+        say("kernel", name="B2 fused_attention_block backward", **shapes[-1])
+    return shapes
 
 
 @contextlib.contextmanager
@@ -455,7 +698,8 @@ def count_phase(torch, model):
         raise AssertionError("grid mode must trigger on the tiny-rect image only")
     if results[-1].n_windows != 36:
         raise AssertionError(f"grid image ran {results[-1].n_windows} windows, not 36")
-    if launches != {"B1": 26 * batches, "B2": 18 * batches, "B3": 0, "B4": 0} or batches == 0:
+    if launches != {"B1": 26 * batches, "B2": 18 * batches, "B3": 0, "B4": 0, "B5": 0,
+                    "B6": 0} or batches == 0:
         raise AssertionError(f"launches {launches} for {batches} window batches")
     say("count_launches", window_batches=batches, **launches)
     return launches
@@ -493,19 +737,25 @@ def train_batch(rng, b: int):
 def launch_counts():
     from countr_tpu_torch.ops.fused_attn import fused_attention
     from countr_tpu_torch.ops.fused_block import fused_attention_block
+    from countr_tpu_torch.ops.fused_cross import fused_cross_attention_block
     from countr_tpu_torch.ops.fused_ln import fused_layer_norm
+    from countr_tpu_torch.ops.fused_mlp import fused_mlp_block
 
     return {"B1": fused_layer_norm.launches, "B2": fused_attention_block.launches,
-            "B3": fused_attention.launches, "B4": fused_attention.bwd_launches}
+            "B3": fused_attention.launches, "B4": fused_attention.bwd_launches,
+            "B5": fused_mlp_block.launches, "B6": fused_cross_attention_block.launches}
 
 
 def reset_counts():
     from countr_tpu_torch.ops.fused_attn import fused_attention
     from countr_tpu_torch.ops.fused_block import fused_attention_block
+    from countr_tpu_torch.ops.fused_cross import fused_cross_attention_block
     from countr_tpu_torch.ops.fused_ln import fused_layer_norm
+    from countr_tpu_torch.ops.fused_mlp import fused_mlp_block
 
     fused_layer_norm.launches = fused_attention_block.launches = 0
     fused_attention.launches = fused_attention.bwd_launches = 0
+    fused_mlp_block.launches = fused_cross_attention_block.launches = 0
 
 
 def train_phase(torch, dev):
@@ -549,8 +799,7 @@ def train_phase(torch, dev):
         if a is None or n.startswith("decoder_proj") and n.endswith(".bias") \
                 or n.endswith("attn.wk.bias"):
             continue
-        a, b = a.double().flatten(), b.double().flatten()
-        cosines[n] = float(a @ b / (a.norm() * b.norm()))
+        cosines[n] = cosine(a, b)
     missing = [n for n in trainable if grads_k[n] is None]
     if missing != ["shot_token"]:
         raise AssertionError(f"train: trainable tensors without a gradient at shot 3: {missing}")
@@ -583,7 +832,7 @@ def train_phase(torch, dev):
         losses.append(float(m["loss"]))
         step_ms.append(start.elapsed_time(end))
     launches = launch_counts()
-    per_step = {"B1": 44, "B2": 0, "B3": 18, "B4": 6}
+    per_step = {"B1": 44, "B2": 0, "B3": 18, "B4": 6, "B5": 0, "B6": 0}
     ms = float(np.mean(step_ms[1:]))
     say("train", steps=len(shots), shots=shots, losses=losses, lr=TRAIN_LR, step_ms=step_ms,
         ms_per_step=ms, images_per_s=TRAIN_BATCH / ms * 1e3, launches=launches,
@@ -613,9 +862,105 @@ def train_phase(torch, dev):
     loss = float(m["loss"])
     unfrozen_ms = (time.perf_counter() - t0) * 1e3
     unfrozen = launch_counts()
-    if unfrozen != {"B1": 44, "B2": 0, "B3": 18, "B4": 18} or not np.isfinite(loss):
+    if unfrozen != {"B1": 44, "B2": 0, "B3": 18, "B4": 18, "B5": 0, "B6": 0} \
+            or not np.isfinite(loss):
         raise AssertionError(f"train, encoder unfrozen: launches {unfrozen}, loss {loss}")
     say("train_unfrozen", loss=loss, ms=unfrozen_ms, launches=unfrozen)
+    del state, step, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+# Launches per MAE pretrain step (12 encoder and 8 decoder blocks): the
+# CLI's build runs B1 for both LayerNorms of every block and the two final
+# norms and B3/B4 in every block; with B2 on, B2 takes each block's
+# attention branch (its LayerNorm too), and its backward runs B3 (the
+# recompute) and B4.
+PRETRAIN_LAUNCHES = {
+    False: {"B1": 42, "B2": 0, "B3": 20, "B4": 20, "B5": 0, "B6": 0},
+    True: {"B1": 22, "B2": 20, "B3": 20, "B4": 20, "B5": 0, "B6": 0},
+}
+
+
+def pretrain_phase(torch, dev, fused: bool):
+    """The MAE pretrain step of one build at full width: the pretrain
+    CLI's (``fused`` False: B1, B3/B4) or the config's default (``fused``
+    True: B2 with its backward through B3/B4, B1)."""
+    from countr_tpu_torch.config import TrainConfig
+    from countr_tpu_torch.engine import train as engine
+    from countr_tpu_torch.models import build_mae
+
+    build = "config_default" if fused else "cli"
+    model = build_mae("mae_vit_base_patch16", seed=0, fused_attn_block=fused, device=dev)
+    cfg = TrainConfig(batch_size=PRETRAIN_BATCH, lr=PRETRAIN_LR, min_lr=PRETRAIN_LR,
+                      warmup_epochs=0)
+    imgs = torch.from_numpy(train_batch(np.random.default_rng(10), PRETRAIN_BATCH)["image"]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    noise = torch.rand((PRETRAIN_BATCH, model.cfg.num_patches), generator=gen, device=dev)
+
+    # One step's loss and gradients, kernels against plain versions, on the
+    # same weights, images and noise. The key biases (the middle third of
+    # every qkv bias) have an exact gradient of 0 and hold fp32 noise.
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        loss, pred, _ = model(imgs, noise=noise)
+        loss.backward()
+        return loss.item(), pred.shape, {n: p.grad for n, p in model.named_parameters()}
+
+    loss_k, pred_shape, grads_k = loss_and_grads()
+    with plain_kernels():
+        loss_p, _, grads_p = loss_and_grads()
+    model.zero_grad(set_to_none=True)
+    cosines = {}
+    for n, a in grads_k.items():
+        b = grads_p[n]
+        if a is None or b is None:
+            raise AssertionError(f"pretrain ({build}): {n} has no gradient")
+        if n.endswith("attn.qkv.bias"):
+            c = a.numel() // 3
+            a, b = torch.cat([a[:c], a[2 * c:]]), torch.cat([b[:c], b[2 * c:]])
+        cosines[n] = cosine(a, b)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    worst = min(cosines, key=cosines.get)
+    if tuple(pred_shape) != (PRETRAIN_BATCH, 576, 768) or not np.isfinite(loss_k):
+        raise AssertionError(f"pretrain ({build}): pred {tuple(pred_shape)}, loss {loss_k}")
+    if not rel <= TRAIN_LOSS_REL_TOL or not cosines[worst] >= GRAD_COSINE_MIN:
+        raise AssertionError(f"pretrain ({build}): kernel vs plain loss rel {rel}, min cosine "
+                             f"{cosines[worst]} ({worst})")
+    say("pretrain_vs_plain", build=build, loss=loss_k, plain_loss=loss_p, loss_rel_diff=rel,
+        loss_rel_limit=TRAIN_LOSS_REL_TOL, min_grad_cosine=cosines[worst],
+        min_cosine_tensor=worst, cosine_limit=GRAD_COSINE_MIN, tensors_compared=len(cosines))
+    del grads_k, grads_p
+
+    # The path itself: 8 steps on the repeated images and noise.
+    state = engine.init_train_state(model, cfg, steps_per_epoch=100, world_batch=PRETRAIN_BATCH)
+    if {state.schedule(i) for i in range(8)} != {PRETRAIN_LR}:
+        raise AssertionError("the pretrain phase's learning rate is not constant")
+    step = engine.make_pretrain_step(state, cfg)
+    losses, step_ms = [], []
+    torch.cuda.synchronize()
+    reset_counts()
+    for _ in range(8):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = step(imgs, noise)
+        end.record()
+        losses.append(float(m["loss"]))
+        step_ms.append(start.elapsed_time(end))
+    launches = launch_counts()
+    per_step = PRETRAIN_LAUNCHES[fused]
+    ms = float(np.mean(step_ms[1:]))
+    say("pretrain", build=build, steps=8, losses=losses, lr=PRETRAIN_LR, step_ms=step_ms,
+        ms_per_step=ms, images_per_s=PRETRAIN_BATCH / ms * 1e3, launches=launches,
+        launches_per_step=per_step,
+        max_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if launches != {k: v * 8 for k, v in per_step.items()}:
+        raise AssertionError(f"pretrain ({build}): launches {launches} over 8 steps, "
+                             f"expected {per_step} per step")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"pretrain ({build}): losses {losses}")
+    say("profile", path=f"pretrain step ({build})",
+        **profile_run(torch, lambda: step(imgs, noise), 2))
     del state, step, model
     torch.cuda.empty_cache()
     return launches
@@ -641,41 +986,61 @@ def main() -> int:
     ln_shapes = ln_phase(torch, dev)
     say("build_done", seconds=time.perf_counter() - t0)
     block_shapes = block_phase(torch, dev)
+    block_bwd_shapes = block_bwd_phase(torch, dev)
     b3_shapes, b4_shapes = attn_phase(torch, dev)
+    ab = {}
+    b5_shapes = mlp_phase(torch, dev, ab)
+    b6_shapes = cross_phase(torch, dev, ab)
+    say("ab_launches", **ab)
 
     model = build_countr("mae_vit_base6_patch16", seed=0, **fast_mode_overrides("bf16"))
     forward_phase(torch, dev, model)
     profile_phase(torch, dev, model)
-    count_launches = count_phase(torch, model)
+    by_path = {"ab": ab, "count": count_phase(torch, model)}
     del model
     torch.cuda.empty_cache()
-    train_launches = train_phase(torch, dev)
+    by_path["train"] = train_phase(torch, dev)
+    by_path["pretrain"] = pretrain_phase(torch, dev, fused=False)
+    by_path["pretrain_b2_on"] = pretrain_phase(torch, dev, fused=True)
 
-    def entry(name, route, source, replaces, path, shapes):
+    def entry(name, route, source, replaces, path, shapes, **extra):
         main_shape = dict(shapes[0])
-        launches = count_launches if path == "count" else train_launches
         key = name.split()[0]
         return dict(
             name=name, route=route, source=source, replaces=replaces,
-            launches=launches[key], launches_path=path,
-            launches_by_path={"count": count_launches[key], "train": train_launches[key]},
+            launches=by_path[path][key], launches_path=path,
+            launches_by_path={p: counts[key] for p, counts in by_path.items()},
             max_abs_err=main_shape["max_abs_err"],
             max_abs_diff=max(s["max_abs_err"] for s in shapes),
             ms=main_shape["ms"], plain_ms=main_shape["plain_ms"],
             bound_ms=main_shape["bound_ms"], bound_by=main_shape["bound_by"],
             library_ms=main_shape["library_ms"], shape=main_shape["shape"],
-            other_shapes=shapes[1:],
+            other_shapes=shapes[1:], **extra,
         )
 
+    bwd = block_bwd_shapes[0]
     print(json.dumps({"kernels": [
         entry("B1 fused_layer_norm", "triton", "countr_tpu_torch/ops/fused_ln.py",
               "countr_tpu/ops/pallas_ln.py:30", "count", ln_shapes),
         entry("B2 fused_attention_block", "cuda", "countr_tpu_torch/csrc/attn_block.cu",
-              "countr_tpu/ops/pallas_block.py:41", "count", block_shapes),
+              "countr_tpu/ops/pallas_block.py:41", "count", block_shapes,
+              backward=dict(replaces="countr_tpu/ops/pallas_block.py:164", path="pretrain_b2_on",
+                            runs="B3 and B4 (countr_tpu_torch/csrc/attn.cu) and torch.matmul",
+                            ms=bwd["ms"], fwd_bwd_ms=bwd["fwd_bwd_ms"],
+                            plain_fwd_bwd_ms=bwd["plain_fwd_bwd_ms"],
+                            library_fwd_bwd_ms=bwd["library_fwd_bwd_ms"],
+                            bound_ms=bwd["bound_ms"], bound_by=bwd["bound_by"],
+                            min_cosine=min(x["min_cosine"] for x in block_bwd_shapes),
+                            max_rel_err=max(x["max_rel_err"] for x in block_bwd_shapes),
+                            shapes=block_bwd_shapes)),
         entry("B3 fused_attention", "cuda", "countr_tpu_torch/csrc/attn.cu",
               "countr_tpu/ops/pallas_attn.py:33", "train", b3_shapes),
         entry("B4 fused_attention backward", "cuda", "countr_tpu_torch/csrc/attn.cu",
               "countr_tpu/ops/pallas_attn.py:93", "train", b4_shapes),
+        entry("B5 fused_mlp_block", "cuda", "countr_tpu_torch/csrc/mlp_block.cu",
+              "countr_tpu/ops/pallas_block.py:214", "ab", b5_shapes),
+        entry("B6 fused_cross_attention_block", "cuda", "countr_tpu_torch/csrc/cross_block.cu",
+              "countr_tpu/ops/pallas_block.py:398", "ab", b6_shapes),
     ]}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,17 +2,25 @@
 
 The JAX package ``countr_tpu`` is the reference; this package mirrors its
 module layout (config, ops, models, engine) in PyTorch idiom and imports
-nothing of it, nor JAX. The two TPU kernels on the counting path are
-hand-written Hopper kernels here:
+nothing of it, nor JAX. Its six TPU kernels are hand-written Hopper
+kernels here:
 
 - ``ops/fused_ln.py``: LayerNorm (Triton), replaces
-  ``countr_tpu/ops/pallas_ln.py::_ln_kernel``;
+  ``countr_tpu/ops/pallas_ln.py::_ln_kernel`` (B1);
 - ``ops/fused_block.py`` + ``csrc/attn_block.cu``: the attention
   half-block ``x + proj(MHA(qkv(LN(x))))`` (CUDA C++, sm_90a), replaces
-  ``countr_tpu/ops/pallas_block.py::_attn_block_kernel``.
+  ``countr_tpu/ops/pallas_block.py::_attn_block_kernel`` (B2);
+- ``ops/fused_attn.py`` + ``csrc/attn.cu``: attention forward and
+  backward, replace ``countr_tpu/ops/pallas_attn.py::_attn_kernel`` and
+  ``_attn_bwd_kernel`` (B3, B4);
+- ``ops/fused_mlp.py`` + ``csrc/mlp_block.cu``: the MLP half-block,
+  replaces ``pallas_block.py::_mlp_block_kernel`` (B5);
+- ``ops/fused_cross.py`` + ``csrc/cross_block.cu``: the cross-attention
+  half-block, replaces ``pallas_block.py::_cross_block_kernel`` (B6).
 
-Entry points (``models.build_countr``, ``engine.inference.CountingEngine``)
-run on the card unless the caller passes ``device="cpu"``.
+Entry points (``models.build_countr``, ``models.build_mae``,
+``engine.inference.CountingEngine``) run on the card unless the caller
+passes ``device="cpu"``.
 """
 
 import torch

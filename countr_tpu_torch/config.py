@@ -1,8 +1,8 @@
 """Typed model configuration (counterpart of ``countr_tpu/config.py``).
 
-What the counting and finetune paths need: the geometry constants, the
-CounTR config with torch dtypes, the named presets and the training
-knobs.
+What the counting, finetune and pretrain paths need: the geometry
+constants, the CounTR and MAE configs with torch dtypes, the named
+presets and the training knobs.
 """
 
 from __future__ import annotations
@@ -94,6 +94,65 @@ COUNTR_PRESETS = {
         patch_size=14, embed_dim=1280, depth=32, num_heads=16, img_size=378
     ),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class MAEConfig:
+    """MAE pre-training model (MaskedAutoencoderViTNoCT equivalent;
+    reference: models_mae_noct.py:11-51, :207-234 presets).
+
+    Gates as in ``CounTRConfig``. It has no ``freeze_encoder``: an MAE
+    model trains all its parameters.
+    """
+
+    img_size: int = IMG_SIZE
+    patch_size: int = PATCH_SIZE
+    in_chans: int = 3
+    embed_dim: int = 768
+    depth: int = 12
+    num_heads: int = 12
+    decoder_embed_dim: int = 512
+    decoder_depth: int = 8
+    decoder_num_heads: int = 16
+    mlp_ratio: float = 4.0
+    ln_eps: float = 1e-6
+    norm_pix_loss: bool = False
+    mask_ratio: float = 0.5  # reference: FSC_pretrain.py:45
+    dtype: torch.dtype = torch.float32
+    use_pallas_attention: bool = False
+    fused_attn_block: bool = True
+    approx_gelu: bool = False
+
+    @property
+    def grid_size(self) -> int:
+        return self.img_size // self.patch_size
+
+    @property
+    def num_patches(self) -> int:
+        return self.grid_size * self.grid_size
+
+
+MAE_PRESETS = {
+    "mae_vit_base_patch16": MAEConfig(),
+    "mae_vit_large_patch16": MAEConfig(embed_dim=1024, depth=24, num_heads=16),
+    "mae_vit_huge_patch14": MAEConfig(
+        patch_size=14, embed_dim=1280, depth=32, num_heads=16, img_size=378
+    ),
+}
+
+
+def pretrain_overrides(dtype: str, fused_attn_block: bool = False) -> dict:
+    """MAEConfig overrides of the pretrain CLI's build
+    (``cli/pretrain.py:85-100``): in ``bf16`` the kernels (B1, B3/B4) and
+    tanh GELU, with the fused half-block B2 off; ``fused_attn_block=True``
+    keeps the config's own default, B2 on (its backward through B3/B4).
+    ``fp32`` is the plain module path."""
+    if dtype == "fp32":
+        return dict(dtype=torch.float32, fused_attn_block=fused_attn_block)
+    if dtype != "bf16":
+        raise ValueError(f"unsupported dtype mode {dtype!r} (bf16 or fp32)")
+    return dict(dtype=torch.bfloat16, use_pallas_attention=True, approx_gelu=True,
+                fused_attn_block=fused_attn_block)
 
 
 def fast_mode_overrides(dtype: str, training: bool = False) -> dict:

@@ -36,221 +36,15 @@
 // round P at other values. No TMA and no wgmma yet.
 //
 // The helpers and the attention core (step 3) are in attention.cuh,
-// shared with kernel B3 (attn.cu).
+// shared with kernel B3 (attn.cu); the LN pass and the GEMM (steps 1, 2
+// and 4) in gemm.cuh, shared with kernels B5 (mlp_block.cu) and B6
+// (cross_block.cu).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (no --use_fast_math). Plain C interface, bound
 //        with ctypes; the entry returns cudaGetLastError().
 
-#include "attention.cuh"
-
-namespace {
-
-constexpr int LN_THREADS = 256;
-constexpr int LN_MAX_VEC = 8;  // 8 bf16 x 32 lanes x 8 = rows up to 2048
-
-constexpr int GBM = 128;       // GEMM rows per block
-constexpr int GBN = 128;       // GEMM output columns per block
-constexpr int GBK = 32;        // K slice per pipeline stage
-constexpr int GLD = GBK + 8;   // smem row stride (bf16): 80 B, ldmatrix conflict-free
-constexpr int GSTAGES = 3;
-constexpr int GEMM_THREADS = 256;
-constexpr size_t GEMM_SMEM = (size_t)GSTAGES * (GBM + GBN) * GLD * sizeof(bf16);
-
-// bf16 + bf16 rounded to bf16 (the sum of two bf16 values in fp32 is the
-// correctly rounded operand pair; one rounding to bf16 follows).
-__device__ __forceinline__ bf16 add_bf(bf16 a, bf16 b) {
-  return f2bf(bf2f(a) + bf2f(b));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// y[m, :] = bf16(LayerNorm(x[m, :])): one warp per row, C % 8 == 0,
-// C <= 32 * 8 * LN_MAX_VEC. fp32 mean, fp32 variance of (x - mean), rsqrt.
-__global__ void __launch_bounds__(LN_THREADS) ln_rows_kernel(
-    const bf16* __restrict__ x, const float* __restrict__ lns,
-    const float* __restrict__ lnb, float eps, bf16* __restrict__ y, int M, int C) {
-  const int row = (blockIdx.x * LN_THREADS + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= M) return;  // whole warps leave together
-  const bf16* xr = x + (size_t)row * C;
-  float v[LN_MAX_VEC][8];
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < LN_MAX_VEC; ++i) {
-    const int k = (i * 32 + lane) * 8;
-    if (k < C) {
-      const uint4 u = *reinterpret_cast<const uint4*>(xr + k);
-      const bf16* e = reinterpret_cast<const bf16*>(&u);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        v[i][j] = bf2f(e[j]);
-        s += v[i][j];
-      }
-    }
-  }
-  const float mean = warp_sum(s) / (float)C;
-  float q = 0.f;
-#pragma unroll
-  for (int i = 0; i < LN_MAX_VEC; ++i) {
-    if ((i * 32 + lane) * 8 < C) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float d = v[i][j] - mean;
-        q += d * d;
-      }
-    }
-  }
-  const float rstd = rsqrtf(warp_sum(q) / (float)C + eps);
-  bf16* yr = y + (size_t)row * C;
-#pragma unroll
-  for (int i = 0; i < LN_MAX_VEC; ++i) {
-    const int k = (i * 32 + lane) * 8;
-    if (k < C) {
-      uint4 u;
-      bf16* e = reinterpret_cast<bf16*>(&u);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float xn = (v[i][j] - mean) * rstd;
-        e[j] = f2bf(xn * lns[k + j] + lnb[k + j]);
-      }
-      *reinterpret_cast<uint4*>(yr + k) = u;
-    }
-  }
-}
-
-// Out[m, n] = epilogue(sum_k A[m, k] * W[n, k]) for one 128 x 128 tile.
-// Epilogue: t = bf16(acc); t = bf16(t + bias[n]); RESID: t = bf16(R[m, n] + t).
-// 8 warps as 2 (rows) x 4 (cols), each 64 x 32 = 4 x 4 mma tiles.
-// Requires K % 8 == 0 and N % 2 == 0; ragged M, N and K are zero-filled.
-template <bool RESID>
-__global__ void __launch_bounds__(GEMM_THREADS) gemm_nt_kernel(
-    const bf16* __restrict__ A, const bf16* __restrict__ W,
-    const bf16* __restrict__ bias, const bf16* __restrict__ R,
-    bf16* __restrict__ Out, int M, int N, int K) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);  // [GSTAGES][GBM][GLD]
-  bf16* Bs = As + GSTAGES * GBM * GLD;       // [GSTAGES][GBN][GLD]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
-  const int KT = (K + GBK - 1) / GBK;
-
-  auto load = [&](int stage, int kt) {
-    const int k0 = kt * GBK;
-    bf16* as = As + stage * GBM * GLD;
-    bf16* bs = Bs + stage * GBN * GLD;
-#pragma unroll
-    for (int i = tid; i < GBM * (GBK / 8); i += GEMM_THREADS) {
-      const int r = i / (GBK / 8), c = (i % (GBK / 8)) * 8;
-      const int m = m0 + r, k = k0 + c;
-      const bool p = m < M && k < K;
-      cp_async16(as + r * GLD + c, p ? A + (size_t)m * K + k : A, p);
-    }
-#pragma unroll
-    for (int i = tid; i < GBN * (GBK / 8); i += GEMM_THREADS) {
-      const int r = i / (GBK / 8), c = (i % (GBK / 8)) * 8;
-      const int n = n0 + r, k = k0 + c;
-      const bool p = n < N && k < K;
-      cp_async16(bs + r * GLD + c, p ? W + (size_t)n * K + k : W, p);
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < GSTAGES - 1; ++s) {
-    if (s < KT) load(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    // Slice kt has landed; every warp is done with slice kt - 1, whose
-    // stage the prefetch below overwrites.
-    cp_async_wait<GSTAGES - 2>();
-    __syncthreads();
-    const int next = kt + GSTAGES - 1;
-    if (next < KT) load(next % GSTAGES, next);
-    cp_async_commit();
-
-    const bf16* as = As + (kt % GSTAGES) * GBM * GLD;
-    const bf16* bs = Bs + (kt % GSTAGES) * GBN * GLD;
-#pragma unroll
-    for (int kk = 0; kk < GBK; kk += 16) {
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ldmatrix_x4(af[i], as + (wm * 64 + i * 16 + (lane & 15)) * GLD + kk + (lane >> 4) * 8);
-#pragma unroll
-      for (int j2 = 0; j2 < 2; ++j2) {
-        uint32_t r[4];
-        ldmatrix_x4(r, bs + (wn * 32 + j2 * 16 + (lane & 7) + ((lane >> 4) << 3)) * GLD +
-                           kk + ((lane >> 3) & 1) * 8);
-        bfr[2 * j2][0] = r[0];
-        bfr[2 * j2][1] = r[1];
-        bfr[2 * j2 + 1][0] = r[2];
-        bfr[2 * j2 + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma16816(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + wn * 32 + j * 8 + (lane & 3) * 2;
-      if (n >= N) continue;
-      const bf16 b0 = bias[n], b1 = bias[n + 1];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int m = m0 + wm * 64 + i * 16 + (lane >> 2) + hh * 8;
-        if (m >= M) continue;
-        bf16 t0 = add_bf(f2bf(acc[i][j][2 * hh]), b0);
-        bf16 t1 = add_bf(f2bf(acc[i][j][2 * hh + 1]), b1);
-        if (RESID) {
-          const __nv_bfloat162 rv =
-              *reinterpret_cast<const __nv_bfloat162*>(R + (size_t)m * N + n);
-          t0 = add_bf(rv.x, t0);
-          t1 = add_bf(rv.y, t1);
-        }
-        __nv_bfloat162 o;
-        o.x = t0;
-        o.y = t1;
-        *reinterpret_cast<__nv_bfloat162*>(Out + (size_t)m * N + n) = o;
-      }
-    }
-  }
-}
-
-template <bool RESID>
-cudaError_t launch_gemm(const bf16* A, const bf16* W, const bf16* bias,
-                        const bf16* R, bf16* Out, int M, int N, int K,
-                        cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      gemm_nt_kernel<RESID>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)GEMM_SMEM);
-  if (err != cudaSuccess) return err;
-  dim3 grid((N + GBN - 1) / GBN, (M + GBM - 1) / GBM);
-  gemm_nt_kernel<RESID><<<grid, GEMM_THREADS, GEMM_SMEM, stream>>>(
-      A, W, bias, R, Out, M, N, K);
-  return cudaGetLastError();
-}
-
-}  // namespace
+#include "gemm.cuh"
 
 extern "C" {
 
@@ -269,18 +63,17 @@ int attn_block_forward(const void* x, const void* lns, const void* lnb,
   const int M = B * N, hd = C / H;
   if (C % 8 != 0 || C > 32 * 8 * LN_MAX_VEC || hd * H != C)
     return (int)cudaErrorInvalidValue;
-  const int ln_blocks = (M + LN_THREADS / 32 - 1) / (LN_THREADS / 32);
-  ln_rows_kernel<<<ln_blocks, LN_THREADS, 0, s>>>(
-      (const bf16*)x, (const float*)lns, (const float*)lnb, eps, (bf16*)att, M, C);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_ln((const bf16*)x, (const float*)lns, (const float*)lnb, eps,
+                              (bf16*)att, M, C, s);
   if (err != cudaSuccess) return (int)err;
-  err = launch_gemm<false>((const bf16*)att, (const bf16*)wqkv, (const bf16*)bqkv,
-                           nullptr, (bf16*)qkv, M, 3 * C, C, s);
+  err = launch_gemm<EPI_BIAS>((const bf16*)att, (const bf16*)wqkv, (const bf16*)bqkv,
+                              nullptr, (bf16*)qkv, M, 3 * C, C, s);
   if (err != cudaSuccess) return (int)err;
   err = launch_attn_any((const bf16*)qkv, (bf16*)att, B, N, C, H, scale, s);
   if (err != cudaSuccess) return (int)err;
-  err = launch_gemm<true>((const bf16*)att, (const bf16*)wproj, (const bf16*)bproj,
-                          (const bf16*)x, (bf16*)y, M, C, C, s);
+  err = launch_gemm<EPI_BIAS_RESID>((const bf16*)att, (const bf16*)wproj,
+                                    (const bf16*)bproj, (const bf16*)x, (bf16*)y, M, C, C,
+                                    s);
   return (int)err;
 }
 

@@ -1,11 +1,13 @@
 """Weights in the reference ``.pth`` layout (counterpart of
 ``countr_tpu/engine/checkpoint.py``).
 
-The port's modules carry the reference SupervisedMAE state_dict keys, so
-a released checkpoint loads with ``load_state_dict(strict=True)``.
-``state_dict_from_flax`` is the bridge from the JAX package: it turns
-its flax param tree (as numpy arrays) into the same state_dict — the
-port's own copy of the logic of ``export_countr_state_dict``.
+The port's modules carry the reference SupervisedMAE and
+MaskedAutoencoderViTNoCT state_dict keys, so a released checkpoint loads
+with ``load_state_dict(strict=True)``. ``state_dict_from_flax`` and
+``mae_state_dict_from_flax`` are the bridges from the JAX package: they
+turn its flax param trees (as numpy arrays) into the same state_dicts —
+the port's own copy of the logic of ``export_countr_state_dict``, and
+the inverse of ``convert_mae_state_dict``.
 """
 
 from __future__ import annotations
@@ -40,6 +42,32 @@ def _norm(sd, prefix: str, p) -> None:
     sd[f"{prefix}.bias"] = _f32(p["bias"])
 
 
+def _patch_embed(sd, p, patch: int, in_chans: int) -> int:
+    """flax patch-embed matmul kernel [(p, p, c), D] -> torch conv
+    [D, c, p, p]; returns D."""
+    pk = _f32(p["patch_embed"]["proj"]["kernel"])
+    d = pk.shape[1]
+    sd["patch_embed.proj.weight"] = np.ascontiguousarray(
+        pk.T.reshape(d, patch, patch, in_chans).transpose(0, 3, 1, 2)
+    )
+    sd["patch_embed.proj.bias"] = _f32(p["patch_embed"]["proj"]["bias"])
+    return d
+
+
+def _vit_blocks(sd, p, prefix: str) -> None:
+    """Every ``{prefix}_{i}`` timm Block of the flax tree ->
+    ``{prefix}.{i}.*``."""
+    depth = len([k for k in p if k.startswith(f"{prefix}_")])
+    for i in range(depth):
+        blk, pre = p[f"{prefix}_{i}"], f"{prefix}.{i}"
+        _norm(sd, f"{pre}.norm1", blk["norm1"])
+        _linear(sd, f"{pre}.attn.qkv", blk["attn"]["qkv"])
+        _linear(sd, f"{pre}.attn.proj", blk["attn"]["proj"])
+        _norm(sd, f"{pre}.norm2", blk["norm2"])
+        _linear(sd, f"{pre}.mlp.fc1", blk["mlp"]["fc1"])
+        _linear(sd, f"{pre}.mlp.fc2", blk["mlp"]["fc2"])
+
+
 def state_dict_from_flax(
     params: Mapping[str, Any], patch: int = 16, grid: int = 24, in_chans: int = 3
 ) -> Dict[str, np.ndarray]:
@@ -47,21 +75,8 @@ def state_dict_from_flax(
     array-like leaves) -> the port's state_dict as numpy arrays."""
     p = params.get("params", params)
     sd: Dict[str, np.ndarray] = {}
-    pk = _f32(p["patch_embed"]["proj"]["kernel"])  # [(p, p, c), D]
-    d = pk.shape[1]
-    sd["patch_embed.proj.weight"] = np.ascontiguousarray(
-        pk.T.reshape(d, patch, patch, in_chans).transpose(0, 3, 1, 2)
-    )
-    sd["patch_embed.proj.bias"] = _f32(p["patch_embed"]["proj"]["bias"])
-    depth = len([k for k in p if k.startswith("blocks_")])
-    for i in range(depth):
-        blk, pre = p[f"blocks_{i}"], f"blocks.{i}"
-        _norm(sd, f"{pre}.norm1", blk["norm1"])
-        _linear(sd, f"{pre}.attn.qkv", blk["attn"]["qkv"])
-        _linear(sd, f"{pre}.attn.proj", blk["attn"]["proj"])
-        _norm(sd, f"{pre}.norm2", blk["norm2"])
-        _linear(sd, f"{pre}.mlp.fc1", blk["mlp"]["fc1"])
-        _linear(sd, f"{pre}.mlp.fc2", blk["mlp"]["fc2"])
+    d = _patch_embed(sd, p, patch, in_chans)
+    _vit_blocks(sd, p, "blocks")
     _norm(sd, "norm", p["norm"])
     _linear(sd, "decoder_embed", p["decoder_embed"])
     sd["shot_token"] = _f32(p["shot_token"])
@@ -86,6 +101,30 @@ def state_dict_from_flax(
         sd[f"decode_head{k}.1.weight"] = _f32(head[f"gn{k}_scale"])
         sd[f"decode_head{k}.1.bias"] = _f32(head[f"gn{k}_bias"])
     _conv(sd, "decode_head3.3", head["pred"])
+    dec_dim = sd["decoder_embed.bias"].shape[0]
+    sd["pos_embed"] = get_2d_sincos_pos_embed(d, grid)[None]
+    sd["decoder_pos_embed"] = get_2d_sincos_pos_embed(dec_dim, grid)[None]
+    return sd
+
+
+def mae_state_dict_from_flax(
+    params: Mapping[str, Any], patch: int = 16, grid: int = 24, in_chans: int = 3
+) -> Dict[str, np.ndarray]:
+    """MAE flax params (``{"params": ...}`` or the inner tree) -> the
+    port's state_dict in the reference MaskedAutoencoderViTNoCT keys
+    (models_mae_noct.py:11-51), numpy arrays; the fixed position
+    embeddings are computed. ``convert_mae_state_dict`` of the JAX
+    package is its inverse."""
+    p = params.get("params", params)
+    sd: Dict[str, np.ndarray] = {}
+    d = _patch_embed(sd, p, patch, in_chans)
+    _vit_blocks(sd, p, "blocks")
+    _norm(sd, "norm", p["norm"])
+    _linear(sd, "decoder_embed", p["decoder_embed"])
+    sd["mask_token"] = _f32(p["mask_token"])
+    _vit_blocks(sd, p, "decoder_blocks")
+    _norm(sd, "decoder_norm", p["decoder_norm"])
+    _linear(sd, "decoder_pred", p["decoder_pred"])
     dec_dim = sd["decoder_embed.bias"].shape[0]
     sd["pos_embed"] = get_2d_sincos_pos_embed(d, grid)[None]
     sd["decoder_pos_embed"] = get_2d_sincos_pos_embed(dec_dim, grid)[None]

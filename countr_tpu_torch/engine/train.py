@@ -1,6 +1,7 @@
-"""Finetune training engine (counterpart of ``countr_tpu/engine/train.py``):
+"""Training engine (counterpart of ``countr_tpu/engine/train.py``):
 AdamW with the reference's decay groups and frozen encoder, the
-masked-MSE finetune step, the eval step and the encoder transfer.
+masked-MSE finetune step, the eval step, the MAE pretrain step and the
+encoder transfer.
 
 Mixed precision as in the JAX package: bf16 activations with fp32
 parameters and optimizer state (the reference's fp16 AMP + GradScaler,
@@ -63,7 +64,7 @@ def make_optimizer(
         warmup_epochs=cfg.warmup_epochs, steps_per_epoch=steps_per_epoch,
         min_lr=cfg.min_lr,
     )
-    frozen = frozen_labels(model) if model.cfg.freeze_encoder else {}
+    frozen = frozen_labels(model) if getattr(model.cfg, "freeze_encoder", False) else {}
     decay = decay_mask(model)
     groups = {True: [], False: []}
     for name, p in model.named_parameters():
@@ -188,6 +189,32 @@ def make_eval_step(model: nn.Module):
                 "nae_sum": (nae * v).sum(), "n": v.sum()}
 
     return eval_fn
+
+
+def make_pretrain_step(
+    state: TrainState, cfg: TrainConfig, generator: torch.Generator | None = None,
+) -> Callable[..., Dict]:
+    """Returns step(imgs, noise=None) -> metrics, updating ``state``: the
+    forward, backward and one AdamW update of the MAE loss over all
+    parameters (the JAX ``make_pretrain_step``, ``engine/train.py:368-383``;
+    reference hot loop: FSC_pretrain.py:254-299). imgs [B, H, W, 3] on
+    the model's device; the masking noise [B, L] is ``noise`` or, without
+    it, drawn from ``generator`` (default: one on the model's device
+    seeded with ``cfg.seed``). Metrics: ``loss`` before the update, a 0-d
+    tensor."""
+    dev = next(state.model.parameters()).device
+    gen = generator
+    if gen is None:
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+
+    def step(imgs, noise=None) -> Dict:
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, _, _ = state.model(imgs, noise=noise, generator=None if noise is not None else gen)
+        loss.backward()
+        state.apply_gradients()
+        return {"loss": loss.detach()}
+
+    return step
 
 
 ENCODER_PREFIXES = ("patch_embed.", "norm.")

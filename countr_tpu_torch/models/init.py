@@ -7,7 +7,8 @@ of ``countr_tpu/models/init.py``), drawn from an explicit
   flattened [D, 3*p*p] linear map (reference: models_mae_cross.py:117-119).
 - Conv layers keep torch Conv2d defaults: uniform weights and bias with
   bound 1/sqrt(fan_in) (kaiming_uniform(a=sqrt(5))).
-- LayerNorm / GroupNorm: ones and zeros; the shot token: normal(0.02).
+- LayerNorm / GroupNorm: ones and zeros; CounTR's shot token and the
+  MAE's mask token: normal(0.02) (reference: models_mae_noct.py:74).
 """
 
 from __future__ import annotations
@@ -29,8 +30,7 @@ def xavier_uniform_(weight: torch.Tensor, gen: torch.Generator) -> None:
     _uniform_(weight, math.sqrt(6.0 / (fan_in + fan_out)), gen)
 
 
-def init_countr_(model: nn.Module, gen: torch.Generator) -> None:
-    """Initialise a CounTR model's parameters in place (on the CPU)."""
+def _init_modules_(model: nn.Module, gen: torch.Generator) -> None:
     for name, mod in model.named_modules():
         if isinstance(mod, nn.Linear) or name == "patch_embed.proj":
             xavier_uniform_(mod.weight, gen)
@@ -42,7 +42,20 @@ def init_countr_(model: nn.Module, gen: torch.Generator) -> None:
         elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
             nn.init.ones_(mod.weight)
             nn.init.zeros_(mod.bias)
+
+
+def _normal_(t: torch.Tensor, std: float, gen: torch.Generator) -> None:
     with torch.no_grad():
-        model.shot_token.copy_(
-            torch.randn(model.shot_token.shape, generator=gen) * 0.02
-        )
+        t.copy_(torch.randn(t.shape, generator=gen) * std)
+
+
+def init_countr_(model: nn.Module, gen: torch.Generator) -> None:
+    """Initialise a CounTR model's parameters in place (on the CPU)."""
+    _init_modules_(model, gen)
+    _normal_(model.shot_token, 0.02, gen)
+
+
+def init_mae_(model: nn.Module, gen: torch.Generator) -> None:
+    """Initialise an MAE model's parameters in place (on the CPU)."""
+    _init_modules_(model, gen)
+    _normal_(model.mask_token, 0.02, gen)

@@ -9,9 +9,11 @@ the bias after the product in the compute dtype, as flax's Dense does.
 
 In the bf16 fast mode the LayerNorms take kernel B1 (ops/fused_ln.py),
 and a block's attention takes either kernel B2 for the whole branch
-(ops/fused_block.py; inference builds) or kernels B3/B4 for the
-attention core (ops/fused_attn.py; training builds, where B2 is off),
-behind the JAX package's gates.
+(ops/fused_block.py, with its backward through B3/B4) or kernels B3/B4
+for the attention core (ops/fused_attn.py; the training builds of the
+CLIs, where B2 is off), behind the JAX package's gates.
+``fused_mlp_branch`` runs the MLP branch as kernel B5
+(ops/fused_mlp.py); as in the JAX package, no Block calls it.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from countr_tpu_torch.ops.attention import multi_head_attention
 from countr_tpu_torch.ops.fused_attn import fused_attention_qkv
 from countr_tpu_torch.ops.fused_block import fused_attention_block
 from countr_tpu_torch.ops.fused_ln import fused_layer_norm
+from countr_tpu_torch.ops.fused_mlp import fused_mlp_block
 
 
 def cast_param(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -143,15 +146,36 @@ class SelfAttention(nn.Module):
         return dense(y, self.proj, self.dtype)
 
 
+def _branch_params(x: torch.Tensor, *params: torch.Tensor):
+    """A fused branch's weights: the fp32 parameters themselves under
+    autograd (the branch Function casts them and returns fp32 weight
+    gradients, as the JAX entries take the fp32 flax params), else the
+    cached copies in x's dtype."""
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+        return params
+    return tuple(cast_param(p, x.dtype) for p in params)
+
+
 def fused_attn_branch(x: torch.Tensor, norm: LayerNorm, attn: SelfAttention):
     """``x + proj(MHA(qkv(LN(x))))`` through kernel B2, from the same
     parameters as the LayerNorm/SelfAttention pair it replaces."""
-    bf = torch.bfloat16
     return fused_attention_block(
         x, norm.weight, norm.bias,
-        cast_param(attn.qkv.weight, bf), cast_param(attn.qkv.bias, bf),
-        cast_param(attn.proj.weight, bf), cast_param(attn.proj.bias, bf),
+        *_branch_params(x, attn.qkv.weight, attn.qkv.bias, attn.proj.weight, attn.proj.bias),
         attn.num_heads, norm.eps,
+    )
+
+
+def fused_mlp_branch(x: torch.Tensor, norm: LayerNorm, mlp: Mlp):
+    """``x + fc2(GELU(fc1(LN(x))))`` through kernel B5, from the same
+    parameters as the LayerNorm/Mlp pair it would replace. Like the JAX
+    package's (``models/vit.py:200``), no Block calls it: the fused MLP
+    branch was measured slower than the modules on the TPU
+    (``models/vit.py:259-263`` there)."""
+    return fused_mlp_block(
+        x, norm.weight, norm.bias,
+        *_branch_params(x, mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight, mlp.fc2.bias),
+        norm.eps, mlp.approx_gelu,
     )
 
 

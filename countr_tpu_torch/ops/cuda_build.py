@@ -1,5 +1,6 @@
 """Build a CUDA C++ source of ``countr_tpu_torch/csrc`` into a shared
-library with a plain C interface and load it with ctypes.
+library with a plain C interface and load it with ctypes; and the
+checks and the call that the block kernels' wrappers share.
 
 The library is compiled at first use with ``nvcc`` for ``sm_90a`` into
 ``countr_tpu_torch/_build/`` (listed in .gitignore), named after the hash
@@ -21,6 +22,8 @@ import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -87,3 +90,41 @@ def build_libraries(names) -> dict:
     started together. Returns ``{name: (lib, record)}``."""
     with ThreadPoolExecutor(len(names)) as pool:
         return dict(zip(names, pool.map(build_library, names)))
+
+
+def activation(entry: str, name: str, x, ndim: int = 3):
+    """Check that ``x`` is what the block kernels take as an activation:
+    a contiguous, 16-byte aligned bf16 tensor of ``ndim`` dims on a CUDA
+    device. Raises ValueError otherwise (no conversion: the kernels are
+    bf16-only)."""
+    if x.dtype != torch.bfloat16 or x.dim() != ndim or not x.is_contiguous():
+        raise ValueError(f"{entry}: {name} must be a contiguous bf16 {ndim}-d tensor; "
+                         f"got {x.dtype} {tuple(x.shape)}")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{entry}: {name} must be 16-byte aligned")
+    return x
+
+
+def operand(entry: str, name: str, t, dtype, shape, device):
+    """``t`` as the contiguous ``dtype`` tensor a kernel entry takes (a
+    weight is cast, as the TPU kernels cast theirs at use), after checking
+    its device and shape. Raises ValueError otherwise."""
+    if t.device != device or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{entry}: {name} must be {tuple(shape)} on {device}; "
+                         f"got {tuple(t.shape)} on {t.device}")
+    t = t.to(dtype).contiguous()
+    if t.data_ptr() % 16:
+        raise ValueError(f"{entry}: {name} must be 16-byte aligned")
+    return t
+
+
+def launch(entry: str, fn, error_string, device, *args) -> None:
+    """Call the C entry ``fn`` with ``args`` (tensors become their data
+    pointers) and the current CUDA stream of ``device``; raise
+    RuntimeError with the CUDA error when it returns nonzero."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*(a.data_ptr() if torch.is_tensor(a) else a for a in args), stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry}: kernel launch failed: "
+                           f"{error_string(rc).decode()} (code {rc})")

@@ -36,7 +36,7 @@ import ctypes
 
 import torch
 
-from countr_tpu_torch.ops.cuda_build import build_library
+from countr_tpu_torch.ops.cuda_build import build_library, launch
 
 LOG2E = 1.4426950408889634
 HEAD_DIMS = (16, 32, 64)
@@ -130,23 +130,12 @@ def _geometry(qkv: torch.Tensor, num_heads: int):
     return b, n, c, hd
 
 
-def _run(lib, fn, *args) -> None:
-    with torch.cuda.device(args[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        ptrs = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
-        rc = fn(*ptrs, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"fused_attention: kernel launch failed: "
-            f"{lib.attn_error_string(rc).decode()} (code {rc})"
-        )
-
-
 def _launch_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     b, n, c, hd = _geometry(qkv, num_heads)
     lib, _ = _lib()
     att = torch.empty((b, n, c), device=qkv.device, dtype=torch.bfloat16)
-    _run(lib, lib.attn_forward, qkv, att, b, n, c, num_heads, hd ** -0.5 * LOG2E)
+    launch("fused_attention", lib.attn_forward, lib.attn_error_string, qkv.device,
+           qkv, att, b, n, c, num_heads, hd ** -0.5 * LOG2E)
     fused_attention.launches += 1
     return att
 
@@ -157,7 +146,8 @@ def _launch_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Ten
     lib, _ = _lib()
     stats = torch.empty((3, b, num_heads, n), device=qkv.device, dtype=torch.float32)
     dqkv = torch.empty_like(qkv)
-    _run(lib, lib.attn_backward, qkv, g, stats, dqkv, b, n, c, num_heads, hd ** -0.5)
+    launch("fused_attention", lib.attn_backward, lib.attn_error_string, qkv.device,
+           qkv, g, stats, dqkv, b, n, c, num_heads, hd ** -0.5)
     fused_attention.bwd_launches += 1
     return dqkv
 

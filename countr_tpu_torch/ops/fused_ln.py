@@ -32,6 +32,8 @@ kernel launches.
 
 import torch
 
+from countr_tpu_torch.ops.vjp import recompute_vjp
+
 _KERNEL = None
 
 
@@ -111,13 +113,9 @@ class _LayerNorm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        wanted = [t for t in inputs if t.requires_grad]
-        with torch.enable_grad():
-            y = layer_norm_plain(*inputs, ctx.eps)
-            grads = iter(torch.autograd.grad(y, wanted, g))
-        return (*(next(grads) if t.requires_grad else None for t in inputs), None)
+        grads = recompute_vjp(layer_norm_plain, ctx.saved_tensors, ctx.needs_input_grad,
+                              g, ctx.eps)
+        return (*grads, None)
 
 
 def fused_layer_norm(

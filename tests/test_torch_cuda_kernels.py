@@ -27,7 +27,9 @@ from countr_tpu_torch.ops.fused_attn import (
     fused_attention_qkv,
 )
 from countr_tpu_torch.ops.fused_block import attention_block_plain, fused_attention_block
+from countr_tpu_torch.ops.fused_cross import cross_block_plain, fused_cross_attention_block
 from countr_tpu_torch.ops.fused_ln import fused_layer_norm, layer_norm_plain
+from countr_tpu_torch.ops.fused_mlp import fused_mlp_block, mlp_block_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -105,8 +107,8 @@ def _ulp_limit(ref) -> float:
     return max(3.9e-3, 2.0 ** (np.floor(np.log2(top)) - 7))
 
 
-ATTN_SHAPES = [(8, 576, 512, 16), (8, 576, 768, 12), (2, 37, 96, 3), (3, 100, 128, 2),
-               (2, 70, 48, 3)]
+ATTN_SHAPES = [(8, 576, 512, 16), (8, 576, 768, 12), (16, 288, 768, 12), (2, 37, 96, 3),
+               (3, 100, 128, 2), (2, 70, 48, 3)]
 
 
 @pytest.mark.parametrize("b,n,c,h", ATTN_SHAPES)
@@ -161,14 +163,131 @@ def test_fused_ln_backward_matches_plain_autograd(cuda_device):
         assert torch.equal(got, want)
 
 
-def test_fused_block_refuses_autograd_on_card(cuda_device):
+def _cosine(a, b) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+@pytest.mark.parametrize("b,n,c,h", [(16, 576, 768, 12), (16, 576, 512, 16), (2, 70, 48, 3)])
+def test_fused_block_backward_matches_plain_autograd(cuda_device, b, n, c, h):
+    """B2's backward (B3 recompute, B4) against autograd through the plain
+    version, from fp32 weights: fp32 weight gradients, cosine >= 0.99."""
     rng = np.random.default_rng(5)
-    c = 64
-    x = _t(rng, (1, 16, c), cuda_device, dtype=torch.bfloat16)
-    w = [_t(rng, s, cuda_device, 0.05) for s in ((c,), (c,))]
-    w += [_t(rng, s, cuda_device, 0.05, dtype=torch.bfloat16).requires_grad_(True)
-          for s in ((3 * c, c), (3 * c,), (c, c), (c,))]
-    with pytest.raises(RuntimeError, match="no backward"):
-        fused_attention_block(x, *w, 4)
-    with torch.no_grad():
-        assert fused_attention_block(x, *w, 4).shape == x.shape
+    x = _t(rng, (b, n, c), cuda_device, dtype=torch.bfloat16)
+    w = [_t(rng, (c,), cuda_device, 0.05, 1.0), _t(rng, (c,), cuda_device, 0.05)]
+    w += [_t(rng, s, cuda_device, 0.05) for s in ((3 * c, c), (3 * c,), (c, c), (c,))]
+    g = _t(rng, (b, n, c), cuda_device, dtype=torch.bfloat16)
+    grads = []
+    for fn in (fused_attention_block, attention_block_plain):
+        ts = [t.detach().clone().requires_grad_(True) for t in (x, *w)]
+        n0, m0 = fused_attention.launches, fused_attention.bwd_launches
+        fn(*ts, h, 1e-6).backward(g)
+        grads.append([t.grad for t in ts])
+        if fn is fused_attention_block:
+            assert (fused_attention.launches, fused_attention.bwd_launches) == (n0 + 1, m0 + 1)
+    for got, want in zip(*grads):
+        assert got.dtype == want.dtype and bool(torch.isfinite(got).all())
+        assert _cosine(got, want) >= 0.99
+
+
+MLP_SHAPES = [(16, 576, 768, 3072, True), (16, 576, 768, 3072, False),
+              (16, 576, 512, 2048, True), (3, 37, 96, 384, False), (2, 70, 48, 200, True)]
+
+
+def _mlp_args(rng, dev, b, n, c, hid):
+    x = _t(rng, (b, n, c), dev, dtype=torch.bfloat16)
+    w = [_t(rng, (c,), dev, 0.05, 1.0), _t(rng, (c,), dev, 0.05)]
+    w += [_t(rng, s, dev, 0.05) for s in ((hid, c), (hid,), (c, hid), (c,))]
+    return x, w
+
+
+@pytest.mark.parametrize("b,n,c,hid,approx", MLP_SHAPES)
+def test_fused_mlp_matches_plain(cuda_device, b, n, c, hid, approx):
+    rng = np.random.default_rng(6)
+    x, w = _mlp_args(rng, cuda_device, b, n, c, hid)
+    n0 = fused_mlp_block.launches
+    got = fused_mlp_block(x, *w, 1e-6, approx)
+    torch.cuda.synchronize()
+    assert fused_mlp_block.launches == n0 + 1
+    want = mlp_block_plain(x, *w, 1e-6, approx)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert bool(torch.isfinite(got.float()).all())
+    lim = BLOCK_TOL * max(1.0, float(want.float().abs().max()))
+    assert float((got.float() - want.float()).abs().max()) <= lim
+
+
+# (b, n, c, heads, ny): every head dim the kernel is built for, 8 to 256
+CROSS_SHAPES = [(16, 576, 512, 16, 3), (16, 576, 512, 16, 1), (2, 37, 96, 3, 8),
+                (3, 100, 64, 4, 5), (2, 70, 256, 2, 2), (2, 37, 64, 8, 2),
+                (2, 50, 768, 12, 3), (2, 33, 512, 2, 4)]
+
+
+def _cross_args(rng, dev, b, n, c, ny):
+    bf = torch.bfloat16
+    x, k, v = (_t(rng, s, dev, dtype=bf) for s in ((b, n, c), (b, ny, c), (b, ny, c)))
+    w = [_t(rng, (c,), dev, 0.05, 1.0), _t(rng, (c,), dev, 0.05)]
+    wq = [_t(rng, s, dev, 0.05) for s in ((c, c), (c,))]
+    wp = [_t(rng, s, dev, 0.05) for s in ((c, c), (c,))]
+    return (x, *w, *wq, k, v, *wp)
+
+
+@pytest.mark.parametrize("b,n,c,h,ny", CROSS_SHAPES)
+def test_fused_cross_matches_plain(cuda_device, b, n, c, h, ny):
+    rng = np.random.default_rng(7)
+    args = _cross_args(rng, cuda_device, b, n, c, ny)
+    n0 = fused_cross_attention_block.launches
+    got = fused_cross_attention_block(*args, h, 1e-6)
+    torch.cuda.synchronize()
+    assert fused_cross_attention_block.launches == n0 + 1
+    want = cross_block_plain(*args, h, 1e-6)
+    assert got.dtype == torch.bfloat16 and got.shape == args[0].shape
+    assert bool(torch.isfinite(got.float()).all())
+    lim = BLOCK_TOL * max(1.0, float(want.float().abs().max()))
+    assert float((got.float() - want.float()).abs().max()) <= lim
+
+
+def test_fused_cross_takes_plain_route_above_8_tokens(cuda_device):
+    rng = np.random.default_rng(8)
+    args = _cross_args(rng, cuda_device, 2, 64, 64, 9)
+    n0 = fused_cross_attention_block.launches
+    got = fused_cross_attention_block(*args, 4, 1e-6)
+    assert fused_cross_attention_block.launches == n0
+    assert torch.equal(got, cross_block_plain(*args, 4, 1e-6))
+
+
+def test_fused_mlp_and_cross_backward_is_the_plain_vjp(cuda_device):
+    rng = np.random.default_rng(9)
+    x, w = _mlp_args(rng, cuda_device, 2, 64, 64, 256)
+    cross = _cross_args(rng, cuda_device, 2, 64, 64, 3)
+    g = _t(rng, (2, 64, 64), cuda_device, dtype=torch.bfloat16)
+    for fn, plain, args, extra in ((fused_mlp_block, mlp_block_plain, (x, *w), (1e-6, True)),
+                                   (fused_cross_attention_block, cross_block_plain, cross,
+                                    (4, 1e-6))):
+        grads = []
+        for f in (fn, plain):
+            ts = [t.detach().clone().requires_grad_(True) for t in args]
+            f(*ts, *extra).backward(g)
+            grads.append([t.grad for t in ts])
+        for got, want in zip(*grads):
+            assert torch.equal(got, want)
+
+
+def test_fused_mlp_and_cross_refuse_fp32_and_malformed_input(cuda_device):
+    rng = np.random.default_rng(10)
+    x, w = _mlp_args(rng, cuda_device, 1, 16, 64, 256)
+    with pytest.raises(ValueError, match="bf16"):
+        fused_mlp_block(x.float(), *w)
+    with pytest.raises(ValueError, match="w_fc2"):
+        fused_mlp_block(x, *w[:4], w[4][:, :128], w[5])
+    with pytest.raises(ValueError, match="aligned"):
+        xm = torch.zeros(16 * 64 + 1, device=cuda_device, dtype=torch.bfloat16)[1:]
+        fused_mlp_block(xm.view(1, 16, 64), *w)
+    args = list(_cross_args(rng, cuda_device, 1, 16, 64, 3))
+    with pytest.raises(ValueError, match="bf16"):
+        fused_cross_attention_block(args[0].float(), *args[1:], 4)
+    with pytest.raises(ValueError, match="bf16"):
+        fused_cross_attention_block(*args[:5], args[5].float(), *args[6:], 4)
+    with pytest.raises(ValueError, match="k and v"):
+        fused_cross_attention_block(*args[:6], args[6][:, :2].contiguous(), *args[7:], 4)
+    with pytest.raises(ValueError, match="heads"):
+        fused_cross_attention_block(*args, 5)
