@@ -8,7 +8,11 @@ Phases, one line each on stdout:
      attn_block.cu for B2, attn.cu for B3/B4, mlp_block.cu for B5 and
      cross_block.cu for B6, one nvcc each, started together) and the
      Triton kernel's first compile;
-  3. kernels: each hand-written kernel (B1-B6) and B2's backward against
+  3. gemm: the GEMM that B2, B5 and B6 share (csrc/gemm.cuh, through
+     ops/gemm.py) at every product of the paths at 16 windows, against
+     its plain version (max|d|), its graph-replayed ms and TFLOP/s
+     beside torch.matmul's for the same epilogue-free product;
+     kernels: each hand-written kernel (B1-B6) and B2's backward against
      its plain PyTorch version on the card, at the main paths' shapes
      (B5 and B6, which no model path runs, at the A/B scripts' shapes;
      their checked calls, one per shape, are the "ab" path, counted with
@@ -18,7 +22,8 @@ Phases, one line each on stdout:
      between CUDA events) of the kernel, its plain version and one
      PyTorch library call or composition as a yardstick, beside the
      card's bound for the same work; B3/B4 also at the MAE encoder's
-     N = 288;
+     N = 288 (B4's yardstick: SDPA forward + backward graph-replayed,
+     less SDPA's forward);
   4. forward: full-width mae_vit_base6_patch16 in the bf16 fast mode,
      random weights from torch.Generator seed 0, 16 windows — the kernel
      path against the same model with every kernel swapped for its
@@ -138,8 +143,9 @@ def graph_ms(torch, fn, arg_sets, iters: int = 16, replays: int = 3) -> float:
             fn(*arg_sets[i % len(arg_sets)])
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    # relaxed: B2's C entry calls cudaFuncSetAttribute, not a stream
-    # operation, at every launch.
+    # relaxed: the first launch of each kernel instantiation calls
+    # cudaFuncSetAttribute, not a stream operation (the warm-up calls
+    # above make those first launches).
     with torch.cuda.graph(graph, capture_error_mode="relaxed"):
         for i in range(iters):
             fn(*arg_sets[i % len(arg_sets)])
@@ -223,6 +229,54 @@ def ln_phase(torch, dev):
         ))
         say("kernel", name="B1 fused_layer_norm", **shapes[-1])
     return shapes
+
+
+# Every GEMM of the paths at 16 windows (M = 9216): (product, N, K,
+# epilogue) for B2's qkv and proj and B5's fc1 and fc2, encoder and
+# decoder. B6's q and proj are the decoder's 512 x 512.
+GEMM_SHAPES = (
+    ("B2 qkv, encoder", 2304, 768, "bias"), ("B2 proj, encoder", 768, 768, "residual"),
+    ("B2 qkv, decoder", 1536, 512, "bias"), ("B2 proj / B6 q, proj, decoder", 512, 512, "residual"),
+    ("B5 fc1, encoder", 3072, 768, "gelu_tanh"), ("B5 fc2, encoder", 768, 3072, "residual"),
+    ("B5 fc1, decoder", 2048, 512, "gelu_tanh"), ("B5 fc2, decoder", 512, 2048, "residual"),
+)
+
+
+def gemm_phase(torch, dev):
+    """The shared GEMM at each product of GEMM_SHAPES: max|d| against
+    ``gemm_nt_plain`` (limit 2^-5·max(1, max|ref|), B5's and B6's), the
+    kernel's graph-replayed ms and TFLOP/s beside ``torch.matmul`` of the
+    same operands (no bias, no epilogue), and the card's bound."""
+    from countr_tpu_torch.ops.gemm import gemm_nt, gemm_nt_plain
+
+    rng = np.random.default_rng(12)
+    m = WINDOWS * 576
+    lines = []
+    for product, n, k, epi in GEMM_SHAPES:
+        a_sets = [randn_on(torch, rng, dev, (m, k)) for _ in range(4)]
+        w = randn_on(torch, rng, dev, (n, k), 0.05)
+        bias = randn_on(torch, rng, dev, (n,), 0.05)
+        r = randn_on(torch, rng, dev, (m, n))
+        got = gemm_nt(a_sets[0], w, bias, r, epi)
+        torch.cuda.synchronize()
+        want = gemm_nt_plain(a_sets[0], w, bias, r, epi)
+        err = max_abs(got, want)
+        lim = BLOCK_TOL * max(1.0, float(want.float().abs().max()))
+        if not err <= lim:
+            raise AssertionError(f"gemm {product} [{m}, {n}, {k}] {epi}: max|d| {err} > {lim}")
+        flops = 2 * m * n * k
+        # a, w and the bias in, the output out (and the residual in), bf16
+        moved = (m * k + n * k + m * n * (2 if epi == "residual" else 1) + n) * 2
+        args = [(x,) for x in a_sets]
+        ms = graph_ms(torch, lambda x: gemm_nt(x, w, bias, r, epi), args)
+        mm_ms = graph_ms(torch, lambda x: torch.matmul(x, w.t()), args)
+        bm, bb = bound(flops, moved)
+        lines.append(dict(product=product, shape=[m, n, k], epilogue=epi, max_abs_err=err,
+                          limit=lim, ms=ms, tflops=flops / ms / 1e9, matmul_ms=mm_ms,
+                          matmul_tflops=flops / mm_ms / 1e9, bound_ms=bm, bound_by=bb))
+        say("gemm", **lines[-1])
+        del a_sets, r, got, want
+    return lines
 
 
 def block_phase(torch, dev):
@@ -312,10 +366,26 @@ def attn_phase(torch, dev):
         def sdpa(x):
             return F.scaled_dot_product_attention(*heads(x))
 
-        # the library's backward: autograd through SDPA from its saved forward
+        # The library's backward: SDPA forward + backward under autograd,
+        # less SDPA's forward alone, both graph-replayed on leaves that no
+        # eager autograd graph holds (a captured backward cannot feed a
+        # gradient node made on another stream); then, for comparison,
+        # autograd through SDPA from its saved forward, eager.
+        ghs = [gg.view(b, n, h, hd).transpose(1, 2).contiguous() for gg in gs[:2]]
+        gleaves = [heads(x).contiguous().requires_grad_(True) for x in qkvs[:2]]
+
+        def sdpa_fwd_grad(i):
+            return F.scaled_dot_product_attention(*gleaves[i])
+
+        def sdpa_fwd_bwd(i):
+            return torch.autograd.grad(F.scaled_dot_product_attention(*gleaves[i]), gleaves[i],
+                                       ghs[i])
+
+        lib_fwd = graph_ms(torch, sdpa_fwd_grad, [(0,), (1,)])
+        lib_fwd_bwd = graph_ms(torch, sdpa_fwd_bwd, [(0,), (1,)])
+        b4_lib = lib_fwd_bwd - lib_fwd
         leaves = [heads(x).contiguous().requires_grad_(True) for x in qkvs[:2]]
         outs = [F.scaled_dot_product_attention(*lv) for lv in leaves]
-        ghs = [gg.view(b, n, h, hd).transpose(1, 2).contiguous() for gg in gs[:2]]
 
         def sdpa_bwd(i):
             return torch.autograd.grad(outs[i], leaves[i], ghs[i], retain_graph=True)
@@ -333,7 +403,7 @@ def attn_phase(torch, dev):
             b4_ms = graph_ms(torch, lambda x, gg: fused_attention_bwd(x, gg, h), bargs)
             b4_plain = graph_ms(torch, lambda x, gg: attention_bwd_plain(
                 *x.chunk(3, dim=-1), gg, h), bargs, iters=4)
-        b4_lib = time_ms(torch, sdpa_bwd, [(0,), (1,)], iters=20)
+        b4_lib_eager = time_ms(torch, sdpa_bwd, [(0,), (1,)], iters=20)
         bm, bb = bound(f4, by3)
         fwd.append(dict(shape=[b, n, c, h], max_abs_err=err, limit=lim, ms=b3_ms, plain_ms=b3_plain,
                         library_ms=b3_lib, library="scaled_dot_product_attention",
@@ -342,11 +412,13 @@ def attn_phase(torch, dev):
         bm, bb = bound(f10, by4)
         bwd.append(dict(shape=[b, n, c, h], max_abs_err=derr, limit=dlim, ms=b4_ms,
                         plain_ms=b4_plain, library_ms=b4_lib,
-                        library="torch.autograd.grad through scaled_dot_product_attention "
-                                "(eager, CUDA events; its forward saved beforehand)",
+                        library="SDPA forward + backward (torch.autograd.grad) less SDPA "
+                                "forward, each graph-replayed",
+                        library_fwd_bwd_ms=lib_fwd_bwd, library_fwd_ms=lib_fwd,
+                        library_eager_ms=b4_lib_eager,
                         bound_ms=bm, bound_by=bb, gflop=f10 / 1e9))
         say("kernel", name="B4 fused_attention backward", **bwd[-1])
-        del leaves, outs
+        del leaves, outs, gleaves
     return fwd, bwd
 
 
@@ -635,8 +707,8 @@ def profile_run(torch, run, steps: int):
     kernels = [r for r in rows if not r[0].startswith(("aten::", "Optimizer.", "autograd::"))]
     kernels.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in kernels)
-    ours = ("_ln_fwd", "ln_rows_kernel", "gemm_nt_kernel", "attn_kernel", "bwd_stats_kernel",
-            "bwd_dkdv_kernel", "bwd_dq_kernel")
+    ours = ("_ln_fwd", "ln_rows_kernel", "gemm_nt_kernel", "attn_onchip_kernel",
+            "attn_twopass_kernel", "bwd_stats_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel")
     return dict(
         wall_ms=wall_ms, device_busy_ms=busy, idle_share=max(0.0, 1 - busy / wall_ms),
         port_kernels=[{"kernel": k[:90], "ms": ms, "calls": n} for k, ms, n in kernels
@@ -985,6 +1057,7 @@ def main() -> int:
     phase_build()
     ln_shapes = ln_phase(torch, dev)
     say("build_done", seconds=time.perf_counter() - t0)
+    gemm_phase(torch, dev)
     block_shapes = block_phase(torch, dev)
     block_bwd_shapes = block_bwd_phase(torch, dev)
     b3_shapes, b4_shapes = attn_phase(torch, dev)
@@ -1021,9 +1094,9 @@ def main() -> int:
     bwd = block_bwd_shapes[0]
     print(json.dumps({"kernels": [
         entry("B1 fused_layer_norm", "triton", "countr_tpu_torch/ops/fused_ln.py",
-              "countr_tpu/ops/pallas_ln.py:30", "count", ln_shapes),
+              "countr_tpu/ops/pallas_ln.py:30", "count", ln_shapes, redesigned_in=1),
         entry("B2 fused_attention_block", "cuda", "countr_tpu_torch/csrc/attn_block.cu",
-              "countr_tpu/ops/pallas_block.py:41", "count", block_shapes,
+              "countr_tpu/ops/pallas_block.py:41", "count", block_shapes, redesigned_in=4,
               backward=dict(replaces="countr_tpu/ops/pallas_block.py:164", path="pretrain_b2_on",
                             runs="B3 and B4 (countr_tpu_torch/csrc/attn.cu) and torch.matmul",
                             ms=bwd["ms"], fwd_bwd_ms=bwd["fwd_bwd_ms"],
@@ -1034,13 +1107,15 @@ def main() -> int:
                             max_rel_err=max(x["max_rel_err"] for x in block_bwd_shapes),
                             shapes=block_bwd_shapes)),
         entry("B3 fused_attention", "cuda", "countr_tpu_torch/csrc/attn.cu",
-              "countr_tpu/ops/pallas_attn.py:33", "train", b3_shapes),
+              "countr_tpu/ops/pallas_attn.py:33", "train", b3_shapes, redesigned_in=2,
+              inherits="the attention core of B2, csrc/attention.cuh launch_attn_any"),
         entry("B4 fused_attention backward", "cuda", "countr_tpu_torch/csrc/attn.cu",
-              "countr_tpu/ops/pallas_attn.py:93", "train", b4_shapes),
+              "countr_tpu/ops/pallas_attn.py:93", "train", b4_shapes, redesigned_in=2),
         entry("B5 fused_mlp_block", "cuda", "countr_tpu_torch/csrc/mlp_block.cu",
-              "countr_tpu/ops/pallas_block.py:214", "ab", b5_shapes),
+              "countr_tpu/ops/pallas_block.py:214", "ab", b5_shapes, redesigned_in=4),
         entry("B6 fused_cross_attention_block", "cuda", "countr_tpu_torch/csrc/cross_block.cu",
-              "countr_tpu/ops/pallas_block.py:398", "ab", b6_shapes),
+              "countr_tpu/ops/pallas_block.py:398", "ab", b6_shapes, redesigned_in=3,
+              inherits="the GEMM of B2 and B5, csrc/gemm.cuh gemm_nt_kernel"),
     ]}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@
 // (sm_90a).
 //
 // B3 (attn_forward) replaces countr_tpu/ops/pallas_attn.py::_attn_kernel
-// (launched by _fused). It runs attn_kernel<HD> of attention.cuh, the
-// attention core of kernel B2, which computes exactly B3's function.
+// (launched by _fused). It runs the attention core of attention.cuh
+// (launch_attn_any), the core of kernel B2, which computes exactly B3's
+// function: QK^T once per key block up to 640 keys, two passes past it.
 //
 // B4 (attn_backward) replaces pallas_attn.py::_attn_bwd_kernel (launched
 // by _fused_bwd), B3's VJP: for each (batch, head), with s = q k^T * hd^-0.5

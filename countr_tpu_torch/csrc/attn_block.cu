@@ -9,31 +9,36 @@
 // proj 0.68 GFLOP per window), 60 us at 989 TFLOP/s; its device-memory
 // traffic (x in, y out, weights) is ~33 MB, ~10 us at 3.35 TB/s.
 //
-// What the design does about it: every product runs on the tensor cores
-// (mma.sync m16n8k16 bf16, fp32 accumulation, operands through ldmatrix),
-// every tile load is a cp.async issued a stage ahead of its use, and the
-// grid is cut for 132 SMs rather than the TPU's one program per batch
-// element. Four kernels run back to back on the caller's stream; the
-// intermediates go through scratch that the caller allocates (qkv
-// [M, 3C] and att [M, C], M = B*N):
+// What the design does about it: every product runs on wgmma, the
+// tensor-core instruction that reaches the card's full rate, with its
+// operands brought by TMA, and the attention computes QK^T once. Four
+// kernels run back to back on the caller's stream; the intermediates go
+// through scratch that the caller allocates (qkv [M, 3C] and att [M, C],
+// M = B*N):
 //   1. LN: one warp per row, fp32 mean and variance of (x - mean),
 //      rsqrt, fp32 affine, bf16 result into att (free until step 3).
-//   2. qkv GEMM: Out = att . Wqkv^T + bqkv, 128 x 128 output tiles, a
-//      3-stage pipeline of 32-deep K slices. Wqkv is [3C, C] in torch's
-//      [out, in] layout: an "NT" product, both operands K-contiguous.
-//   3. Attention: one block per (batch, head, 64-query tile), 4 warps of
-//      16 query rows. Q, S and P stay in registers; 64-key K/V chunks are
-//      double-buffered in shared memory. Two passes over the keys: the
-//      exact row max of the scaled fp32 logits, then p = exp2(logit -
-//      max), s += p (fp32), acc += bf16(p) . V (fp32), and finally
-//      bf16(acc / s). No N x N tensor reaches memory.
-//   4. proj GEMM + bias + residual x, the kernel of step 2.
+//   2. qkv GEMM (gemm.cuh): Out = att . Wqkv^T + bqkv. A producer warp
+//      brings 64-deep K slices of both operands by TMA into an mbarrier
+//      ring; two consumer warpgroups run wgmma on persistent 128 x 256 or
+//      128 x 128 tiles and store each tile by TMA from shared memory.
+//      Wqkv is [3C, C] in torch's [out, in] layout: an "NT" product, both
+//      operands K-contiguous, as wgmma reads them.
+//   3. Attention (attention.cuh, the core B3 runs too): one block per
+//      (batch, head, 64-query tile). Up to N = 576 keys the scaled fp32
+//      logits are computed once (wgmma) and parked in shared memory
+//      (64 x 576 fp32 is 144 KB), so the exact row max is known before
+//      any p is formed without a second QK^T; then p = exp2(logit - max),
+//      s += p (fp32), acc += bf16(p) . V (wgmma, fp32), and
+//      bf16(acc / s). Past 576 keys the two-pass route recomputes QK^T.
+//      No N x N tensor reaches device memory.
+//   4. proj GEMM + bias + residual x, the GEMM of step 2 (the residual
+//      tile also by TMA).
 // The rounding points are the TPU kernel's (pallas_block.py:60-87): bf16
 // LN output, bf16(acc) + bf16(bias) rounded to bf16, logits scaled by
 // hd^-0.5 * log2(e) in fp32, exp2 softmax with the unnormalised P cast to
 // bf16 and the division after PV, the residual added in bf16. The exact
-// max (two passes) is what keeps them: an online-softmax rescale would
-// round P at other values. No TMA and no wgmma yet.
+// max is what keeps them: an online-softmax rescale would round P at
+// other values.
 //
 // The helpers and the attention core (step 3) are in attention.cuh,
 // shared with kernel B3 (attn.cu); the LN pass and the GEMM (steps 1, 2

@@ -11,14 +11,16 @@
 // windows of the decoder ([16, 576, 512], 16 heads, ny 3) the q and proj
 // products are 9.7 GFLOP, 9.8 us at 989 TFLOP/s; the attention itself is
 // 0.06 GFLOP; device-memory traffic (x in, y out, weights) is ~20 MB,
-// 6 us at 3.35 TB/s.
+// 6 us at 3.35 TB/s, and the q and att round trips add 38 MB (11 us).
 //
 // What the design does about it: four kernels back to back on the
 // caller's stream, the intermediates through scratch that the caller
-// allocates (q [M, C] and att [M, C], M = B*N):
+// allocates (q [M, C] and att [M, C], M = B*N); the two products run on
+// the GEMM that B2 and B5 share (gemm.cuh: wgmma, TMA into an mbarrier
+// ring, persistent tiles), which this kernel inherits:
 //   1. LN (gemm.cuh): fp32 statistics and affine, bf16 result into att
 //      (free until step 3);
-//   2. q GEMM (gemm.cuh, tensor cores): q = bf16(bf16(att . Wq^T) + bq);
+//   2. q GEMM (gemm.cuh): q = bf16(bf16(att . Wq^T) + bq);
 //   3. small-k attention: one thread per 8 columns of a row; the hd/8
 //      threads of a head are neighbouring lanes and exchange partial
 //      logits by shuffles, so a (row, head) pair needs no shared memory
@@ -29,7 +31,7 @@
 //      (pallas_block.py:405-436), division after PV;
 //   4. proj GEMM + bias + residual (gemm.cuh).
 // Step 3 is memory-bound: q in and att out, 2 x 9.4 MB at 16 windows,
-// ~6 us at 3.35 TB/s; the two GEMMs dominate. No TMA and no wgmma yet.
+// ~6 us at 3.35 TB/s; the two GEMMs dominate.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (no --use_fast_math). Plain C interface, bound

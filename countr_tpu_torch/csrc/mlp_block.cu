@@ -12,12 +12,14 @@
 // (x in, y out, both weights), 11 us at 3.35 TB/s; the decoder's
 // [16, 576, 512] with hidden 2048 is 38.7 GFLOP, 39 us.
 //
-// What the design does about it: both products run on the tensor cores
-// (mma.sync, cp.async pipelines; gemm.cuh), cut into 128 x 128 tiles for
-// 132 SMs instead of the TPU's one program per batch element. Three
-// kernels run back to back on the caller's stream; the intermediates go
-// through scratch that the caller allocates (xn [M, C] and h [M, 4C],
-// M = B*N):
+// What the design does about it: both products run on gemm.cuh's Hopper
+// GEMM (wgmma from shared memory, TMA loads into an mbarrier ring fed by
+// a producer warp, persistent tiles whose width is chosen per product so
+// the last wave is not mostly empty, the epilogue rounded in bf16 pairs
+// and stored by TMA), instead of the TPU's one program per batch
+// element. Three kernels run back to back on the caller's
+// stream; the intermediates go through scratch that the caller allocates
+// (xn [M, C] and h [M, 4C], M = B*N):
 //   1. LN: fp32 statistics and affine, bf16 result into xn;
 //   2. fc1 GEMM: h = GELU(bf16(bf16(xn . W1^T) + b1)), GELU in fp32 from
 //      the bf16 sum and rounded once (tanh or erf);
@@ -25,8 +27,12 @@
 // The rounding points are the TPU kernel's (pallas_block.py:222-240), with
 // the tanh GELU computed in fp32 and rounded once, as the port's Mlp
 // computes it. The h round trip through device memory (2 x 57 MB for the
-// encoder) is what a fused fc1-fc2 design would remove. No TMA and no
-// wgmma yet.
+// encoder, ~34 us at 3.35 TB/s against ~88 us of products) is what a
+// fused fc1-fc2 design would remove; at hidden 3072 a 128-row tile of h
+// is 768 KB, more than a block's shared memory, so it stays in memory.
+//
+// gemm_nt_forward exposes the shared GEMM alone, with each epilogue, for
+// the card tests and chip_smoke.py's per-shape GEMM lines.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (no --use_fast_math). Plain C interface, bound
@@ -62,6 +68,28 @@ int mlp_block_forward(const void* x, const void* lns, const void* lnb, const voi
   err = launch_gemm<EPI_BIAS_RESID>((const bf16*)h, (const bf16*)w2, (const bf16*)b2,
                                     (const bf16*)x, (bf16*)y, M, C, Hid, s);
   return (int)err;
+}
+
+// Out [M, N] = epilogue(A [M, K] . W [N, K]^T) with bias [N] and, for
+// epi 1, the residual R [M, N]; all bf16 device pointers, 16-byte
+// aligned. epi: 0 bias, 1 bias + residual, 2 bias + tanh GELU, 3 bias +
+// erf GELU (gemm.cuh's Epilogue). Requires K % 8 == 0 and N % 8 == 0.
+// Returns cudaGetLastError() (0 on success).
+int gemm_nt_forward(const void* A, const void* W, const void* bias, const void* R, void* out,
+                    int M, int N, int K, int epi, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const bf16 *a = (const bf16*)A, *w = (const bf16*)W, *b = (const bf16*)bias;
+  const bf16* r = (const bf16*)R;
+  bf16* o = (bf16*)out;
+  switch (epi) {
+    case EPI_BIAS: return (int)launch_gemm<EPI_BIAS>(a, w, b, r, o, M, N, K, s);
+    case EPI_BIAS_RESID: return (int)launch_gemm<EPI_BIAS_RESID>(a, w, b, r, o, M, N, K, s);
+    case EPI_BIAS_GELU_TANH:
+      return (int)launch_gemm<EPI_BIAS_GELU_TANH>(a, w, b, r, o, M, N, K, s);
+    case EPI_BIAS_GELU_ERF:
+      return (int)launch_gemm<EPI_BIAS_GELU_ERF>(a, w, b, r, o, M, N, K, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* mlp_block_error_string(int code) {

@@ -11,11 +11,13 @@ What bounds them on the H100: B3 moves about as many bytes as it does
 operations (4·B·N²·C FLOP against q, k, v and the output; at the
 decoder's [8, 576, 512] 5.4 GFLOP and 18.9 MB, 5.5 and 5.6 us); B4 is
 bound by operations (10·B·N²·C FLOP, 13.6 GFLOP there, 13.7 us, against
-33 MB). What the design does about it: every product on the tensor cores
-(``mma.sync``), no N x N tensor in memory, and blocks of (batch, head,
-64 rows) for 132 SMs; B4 runs three passes (row statistics, dK/dV, dQ)
-with each block owning its outputs, so no atomics. The source's header
-has the details.
+33 MB). What the design does about it: no N x N tensor in memory, and
+blocks of (batch, head, 64 rows) for 132 SMs. B3 runs the attention core
+it shares with B2 (``csrc/attention.cuh``): up to 576 keys, QK^T once by
+wgmma with Q, K and V brought by TMA and the fp32 logits parked in
+shared memory, two ``mma.sync`` passes past that. B4 runs three
+``mma.sync`` passes (row statistics, dK/dV, dQ) with each block owning
+its outputs, so no atomics. The sources' headers have the details.
 
 The kernels take the packed qkv [B, N, 3C] (q | k | v, head h at
 columns h*hd of each), which is what ``SelfAttention``'s one projection

@@ -8,13 +8,19 @@ and the custom VJP ``_fused_block_bwd`` (``pallas_block.py:164-208``).
 
 What bounds it on the H100: tensor-core operations — 59.8 GFLOP per
 encoder launch at 16 windows (60 us at 989 TFLOP/s) against ~33 MB of
-device-memory traffic (~10 us). What the design does about it: all
-three products (qkv, QK^T/PV, proj) run on the tensor cores (mma.sync)
-behind cp.async pipelines, and the work is cut into 128x128 GEMM tiles
-and (batch, head, 64-query) attention blocks (1,728 for the encoder)
-instead of the TPU's one program per batch element (16 programs for 132
-SMs). The source's header has the details and the rounding points,
-which are the TPU kernel's.
+device-memory traffic (~10 us). What the design does about it: every
+product runs on wgmma, Hopper's warpgroup tensor-core instruction, with
+its operands brought by TMA onto mbarriers. The qkv and proj GEMMs
+(``csrc/gemm.cuh``, shared with B5 and B6) are warp-specialised and
+persistent, with 128 x 256 or 128 x 128 tiles chosen per product and
+the output tile stored by TMA. The attention step
+(``csrc/attention.cuh``, shared with B3) computes QK^T once per key
+block up to 576 keys, parking the fp32 logits in shared memory until
+the exact row max is known; past 576 it recomputes QK^T in a second
+pass. The work is cut into tiles and (batch, head, 64-query) blocks for
+132 SMs instead of the TPU's one program per batch element. The
+source's header has the details and the rounding points, which are the
+TPU kernel's.
 
 The entry is a ``torch.autograd.Function``. Its forward is the kernel
 on a CUDA tensor (it launches or raises) and ``attention_block_plain``

@@ -13,8 +13,9 @@ What bounds it on the H100: tensor-core operations, 4·M·C² FLOP for the
 q and proj products (9.7 GFLOP at the decoder's [16, 576, 512], 9.8 us
 at 989 TFLOP/s) against ~20 MB of device-memory traffic (6 us); the
 attention over ny <= 8 keys is 4·M·ny·C FLOP, under 1% of it. What the
-design does about it: the two products on the tensor cores
-(``csrc/gemm.cuh``), the small-k attention as one thread per 8 columns
+design does about it: the two products on the Hopper GEMM that B2
+and B5 share (``csrc/gemm.cuh``: wgmma fed by TMA, persistent tiles,
+the output stored by TMA), the small-k attention as one thread per 8 columns
 with the head's lanes exchanging partial logits by shuffles, k and v
 read from L1/L2. The source's header has the details.
 

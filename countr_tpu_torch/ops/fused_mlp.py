@@ -11,10 +11,13 @@ against its plain version and a library composition.
 What bounds it on the H100: tensor-core operations, 4·M·C·Hid FLOP
 (87.0 GFLOP at the encoder's [16, 576, 768] with hidden 3072, 88 us at
 989 TFLOP/s) against ~38 MB of device-memory traffic (11 us). What the
-design does about it: both products on the tensor cores in 128x128
-tiles for 132 SMs, behind cp.async pipelines; the GELU rides the fc1
-epilogue and the bias and residual the fc2 epilogue (``csrc/gemm.cuh``).
-The source's header has the details.
+design does about it: both products run on the Hopper GEMM of
+``csrc/gemm.cuh`` (wgmma fed by TMA through an mbarrier ring, a
+producer warp and two consumer warpgroups, persistent tiles sized per
+product for 132 SMs, the output stored by TMA); the GELU rides the fc1
+epilogue and the bias and residual the fc2 epilogue. The h round trip
+through device memory stays: a 128-row tile of h at hidden 3072 is
+768 KB. The source's header has the details.
 
 The entry is a ``torch.autograd.Function``: on a CUDA tensor its forward
 launches the kernel or raises, and its backward is the VJP of

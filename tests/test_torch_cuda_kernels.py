@@ -15,7 +15,12 @@ outputs at N = 576 lie); kernel and plain version round at the same
 points (P and dS to bf16, outputs to bf16), so an output differs by one
 rounding at most. B1's backward is the plain formula's VJP recomputed
 from the same inputs, so it equals autograd through the plain version
-bit for bit.
+bit for bit. The shared GEMM (ops/gemm.py) at every product of the
+paths and at ragged M, N and K: max|d| <= 2^-5 * max(1, max|ref|), the
+limit of B5 and B6, whose products it runs (kernel and plain version
+round at the same points and sum in another order). B2 and B3 also at
+N = 1 (the attention core's on-chip route, which holds up to 576 keys)
+and N = 577 and 641 (its two-pass route).
 """
 
 import numpy as np
@@ -30,6 +35,7 @@ from countr_tpu_torch.ops.fused_block import attention_block_plain, fused_attent
 from countr_tpu_torch.ops.fused_cross import cross_block_plain, fused_cross_attention_block
 from countr_tpu_torch.ops.fused_ln import fused_layer_norm, layer_norm_plain
 from countr_tpu_torch.ops.fused_mlp import fused_mlp_block, mlp_block_plain
+from countr_tpu_torch.ops.gemm import EPILOGUES, gemm_nt, gemm_nt_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -66,7 +72,7 @@ def test_fused_ln_matches_plain(cuda_device, rows, c):
 
 @pytest.mark.parametrize("b,n,c,h", [
     (16, 576, 768, 12), (16, 576, 512, 16), (2, 128, 64, 4), (1, 192, 512, 16),
-    (3, 100, 96, 3), (2, 70, 48, 3),
+    (3, 100, 96, 3), (2, 70, 48, 3), (2, 577, 128, 2), (3, 1, 96, 3), (1, 641, 64, 4),
 ])
 def test_fused_block_matches_plain(cuda_device, b, n, c, h):
     rng = np.random.default_rng(1)
@@ -108,7 +114,8 @@ def _ulp_limit(ref) -> float:
 
 
 ATTN_SHAPES = [(8, 576, 512, 16), (8, 576, 768, 12), (16, 288, 768, 12), (2, 37, 96, 3),
-               (3, 100, 128, 2), (2, 70, 48, 3)]
+               (3, 100, 128, 2), (2, 70, 48, 3), (2, 577, 128, 2), (3, 1, 96, 3),
+               (1, 641, 64, 4)]
 
 
 @pytest.mark.parametrize("b,n,c,h", ATTN_SHAPES)
@@ -291,3 +298,44 @@ def test_fused_mlp_and_cross_refuse_fp32_and_malformed_input(cuda_device):
         fused_cross_attention_block(*args[:6], args[6][:, :2].contiguous(), *args[7:], 4)
     with pytest.raises(ValueError, match="heads"):
         fused_cross_attention_block(*args, 5)
+
+
+# (M, N, K, epilogue): every product of the paths at 16 windows (B2's qkv
+# and proj, encoder and decoder; B5's fc1 and fc2), then ragged M, N, K.
+GEMM_CASES = [
+    (9216, 2304, 768, "bias"), (9216, 768, 768, "residual"), (9216, 1536, 512, "bias"),
+    (9216, 512, 512, "residual"), (9216, 3072, 768, "gelu_tanh"), (9216, 3072, 768, "gelu_erf"),
+    (9216, 768, 3072, "residual"), (9216, 2048, 512, "gelu_tanh"), (9216, 512, 2048, "residual"),
+] + [(37, n, 48, e) for n in (96, 144) for e in EPILOGUES]
+
+
+@pytest.mark.parametrize("m,n,k,epilogue", GEMM_CASES)
+def test_gemm_matches_plain(cuda_device, m, n, k, epilogue):
+    rng = np.random.default_rng(11)
+    bf = torch.bfloat16
+    a = _t(rng, (m, k), cuda_device, dtype=bf)
+    w = _t(rng, (n, k), cuda_device, 0.05, dtype=bf)
+    bias = _t(rng, (n,), cuda_device, 0.05, dtype=bf)
+    r = _t(rng, (m, n), cuda_device, dtype=bf)
+    n0 = gemm_nt.launches
+    got = gemm_nt(a, w, bias, r, epilogue)
+    torch.cuda.synchronize()
+    assert gemm_nt.launches == n0 + 1
+    want = gemm_nt_plain(a, w, bias, r, epilogue)
+    assert got.dtype == bf and got.shape == (m, n)
+    assert bool(torch.isfinite(got.float()).all())
+    lim = BLOCK_TOL * max(1.0, float(want.float().abs().max()))
+    assert float((got.float() - want.float()).abs().max()) <= lim
+
+
+def test_gemm_refuses_malformed_input(cuda_device):
+    rng = np.random.default_rng(12)
+    bf = torch.bfloat16
+    a = _t(rng, (16, 40), cuda_device, dtype=bf)
+    w, bias = _t(rng, (8, 40), cuda_device, dtype=bf), _t(rng, (8,), cuda_device, dtype=bf)
+    with pytest.raises(ValueError, match="bf16"):
+        gemm_nt(a.float(), w, bias)
+    with pytest.raises(ValueError, match="K % 8"):
+        gemm_nt(a[:, :36].contiguous(), w[:, :36].contiguous(), bias)
+    with pytest.raises(ValueError, match="residual"):
+        gemm_nt(a, w, bias, torch.zeros((16, 4), device=cuda_device, dtype=bf), "residual")
