@@ -22,8 +22,9 @@ Phases, one line each on stdout:
      between CUDA events) of the kernel, its plain version and one
      PyTorch library call or composition as a yardstick, beside the
      card's bound for the same work; B3/B4 also at the MAE encoder's
-     N = 288 (B4's yardstick: SDPA forward + backward graph-replayed,
-     less SDPA's forward);
+     N = 288 and the MAE decoder's [16, 576, 512] (B4's yardstick: SDPA
+     forward + backward graph-replayed, less SDPA's forward; B4's line
+     also gives each of its two passes' device ms, from torch.profiler);
   4. forward: full-width mae_vit_base6_patch16 in the bf16 fast mode,
      random weights from torch.Generator seed 0, 16 windows — the kernel
      path against the same model with every kernel swapped for its
@@ -61,6 +62,7 @@ exit code and no result line. Needs a CUDA device; uses no JAX.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import subprocess
 import sys
@@ -329,8 +331,8 @@ def block_phase(torch, dev):
 def attn_phase(torch, dev):
     """B3 and B4 at the train step's shapes: [8, 576, 512] with 16 heads
     (decoder) and [8, 576, 768] with 12 (encoder), and at the pretrain
-    encoder's [16, 288, 768] with 12 (the 288 visible tokens of a 0.5
-    mask); packed qkv."""
+    step's: the encoder's [16, 288, 768] with 12 (the 288 visible tokens
+    of a 0.5 mask) and the decoder's [16, 576, 512] with 16; packed qkv."""
     import torch.nn.functional as F
     from countr_tpu_torch.ops.fused_attn import (
         attention_bwd_plain, attention_exp2, fused_attention_bwd, fused_attention_qkv,
@@ -340,7 +342,7 @@ def attn_phase(torch, dev):
     bf = torch.bfloat16
     fwd, bwd = [], []
     for b, n, c, h in ((TRAIN_BATCH, 576, 512, 16), (TRAIN_BATCH, 576, 768, 12),
-                       (PRETRAIN_BATCH, 288, 768, 12)):
+                       (PRETRAIN_BATCH, 288, 768, 12), (PRETRAIN_BATCH, 576, 512, 16)):
         hd = c // h
 
         def t(*shape):
@@ -404,6 +406,10 @@ def attn_phase(torch, dev):
             b4_plain = graph_ms(torch, lambda x, gg: attention_bwd_plain(
                 *x.chunk(3, dim=-1), gg, h), bargs, iters=4)
         b4_lib_eager = time_ms(torch, sdpa_bwd, [(0,), (1,)], iters=20)
+        with torch.no_grad():
+            cycle = itertools.cycle(bargs)
+            passes = profile_run(torch, lambda: fused_attention_bwd(*next(cycle), h),
+                                 12)["port_kernels"]
         bm, bb = bound(f4, by3)
         fwd.append(dict(shape=[b, n, c, h], max_abs_err=err, limit=lim, ms=b3_ms, plain_ms=b3_plain,
                         library_ms=b3_lib, library="scaled_dot_product_attention",
@@ -415,7 +421,7 @@ def attn_phase(torch, dev):
                         library="SDPA forward + backward (torch.autograd.grad) less SDPA "
                                 "forward, each graph-replayed",
                         library_fwd_bwd_ms=lib_fwd_bwd, library_fwd_ms=lib_fwd,
-                        library_eager_ms=b4_lib_eager,
+                        library_eager_ms=b4_lib_eager, passes=passes,
                         bound_ms=bm, bound_by=bb, gflop=f10 / 1e9))
         say("kernel", name="B4 fused_attention backward", **bwd[-1])
         del leaves, outs, gleaves
@@ -708,7 +714,7 @@ def profile_run(torch, run, steps: int):
     kernels.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in kernels)
     ours = ("_ln_fwd", "ln_rows_kernel", "gemm_nt_kernel", "attn_onchip_kernel",
-            "attn_twopass_kernel", "bwd_stats_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel")
+            "attn_twopass_kernel", "bwd_stats_kernel", "bwd_main_kernel")
     return dict(
         wall_ms=wall_ms, device_busy_ms=busy, idle_share=max(0.0, 1 - busy / wall_ms),
         port_kernels=[{"kernel": k[:90], "ms": ms, "calls": n} for k, ms, n in kernels
@@ -1110,7 +1116,8 @@ def main() -> int:
               "countr_tpu/ops/pallas_attn.py:33", "train", b3_shapes, redesigned_in=2,
               inherits="the attention core of B2, csrc/attention.cuh launch_attn_any"),
         entry("B4 fused_attention backward", "cuda", "countr_tpu_torch/csrc/attn.cu",
-              "countr_tpu/ops/pallas_attn.py:93", "train", b4_shapes, redesigned_in=2),
+              "countr_tpu/ops/pallas_attn.py:93", "train", b4_shapes, redesigned_in=5,
+              passes=b4_shapes[0]["passes"]),
         entry("B5 fused_mlp_block", "cuda", "countr_tpu_torch/csrc/mlp_block.cu",
               "countr_tpu/ops/pallas_block.py:214", "ab", b5_shapes, redesigned_in=4),
         entry("B6 fused_cross_attention_block", "cuda", "countr_tpu_torch/csrc/cross_block.cu",

@@ -339,25 +339,31 @@ __host__ __device__ constexpr size_t attn_onchip_smem_bytes(int hc) {
          (size_t)4 * ATTN_PARTS * hc * 32 * 32 * sizeof(float) + (2 * ATTN_RING + 2) * 8;
 }
 
-// qkv [B, N, 3C] as a 3-D tensor map read in boxes of 1 x 64 rows x HD
-// columns (one head's q, k or v for 64 tokens) in the HD*2-byte swizzle
-// that swz_desc describes; rows past N of a batch element read as 0.
+// x [B, N, width] bf16 as a 3-D tensor map read in boxes of 1 x 64 rows x
+// HD columns (one head of 64 tokens) in the HD*2-byte swizzle that
+// swz_desc describes; rows past N of a batch element read as 0.
 template <int HD>
-cudaError_t make_qkv_map(CUtensorMap* map, const bf16* qkv, int B, int N, int C) {
+cudaError_t make_rows_map(CUtensorMap* map, const bf16* x, int B, int N, int width) {
   const EncodeTiledFn fn = encode_tiled();
   if (!fn) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)3 * C, (cuuint64_t)N, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)3 * C * sizeof(bf16),
-                                 (cuuint64_t)N * 3 * C * sizeof(bf16)};
+  const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)N, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)width * sizeof(bf16),
+                                 (cuuint64_t)N * width * sizeof(bf16)};
   const cuuint32_t box[3] = {(cuuint32_t)HD, (cuuint32_t)AK, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUtensorMapSwizzle swz = HD == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
                                  : HD == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
                                             : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<bf16*>(qkv), dims,
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<bf16*>(x), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// qkv [B, N, 3C] in boxes of one head's q, k or v for 64 tokens.
+template <int HD>
+cudaError_t make_qkv_map(CUtensorMap* map, const bf16* qkv, int B, int N, int C) {
+  return make_rows_map<HD>(map, qkv, B, N, 3 * C);
 }
 
 // The current device's SM count, read once per process.

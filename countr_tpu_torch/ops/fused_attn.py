@@ -15,9 +15,11 @@ bound by operations (10·B·N²·C FLOP, 13.6 GFLOP there, 13.7 us, against
 blocks of (batch, head, 64 rows) for 132 SMs. B3 runs the attention core
 it shares with B2 (``csrc/attention.cuh``): up to 576 keys, QK^T once by
 wgmma with Q, K and V brought by TMA and the fp32 logits parked in
-shared memory, two ``mma.sync`` passes past that. B4 runs three
-``mma.sync`` passes (row statistics, dK/dV, dQ) with each block owning
-its outputs, so no atomics. The sources' headers have the details.
+shared memory, two ``mma.sync`` passes past that. B4 runs two passes:
+the row statistics in one online sweep (``mma.sync``), then one wgmma +
+TMA pass per (batch, head) that forms P and dS once per (query, key) pair
+for dV, dK and dQ; each block owns its outputs, so no atomics and the
+same bits on every run. The sources' headers have the details.
 
 The kernels take the packed qkv [B, N, 3C] (q | k | v, head h at
 columns h*hd of each), which is what ``SelfAttention``'s one projection
@@ -95,6 +97,8 @@ def _lib():
         lib.attn_forward.restype = ci
         lib.attn_backward.argtypes = [vp] * 4 + [ci] * 4 + [cf, vp]
         lib.attn_backward.restype = ci
+        lib.attn_backward_scratch_bytes.argtypes = [ci] * 4
+        lib.attn_backward_scratch_bytes.restype = ctypes.c_longlong
         lib.attn_error_string.argtypes = [ci]
         lib.attn_error_string.restype = ctypes.c_char_p
         lib._countr_bound = True
@@ -146,10 +150,11 @@ def _launch_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Ten
     b, n, c, hd = _geometry(qkv, num_heads)
     _check("the output gradient", g, (b, n, c))
     lib, _ = _lib()
-    stats = torch.empty((3, b, num_heads, n), device=qkv.device, dtype=torch.float32)
+    scratch = torch.empty(lib.attn_backward_scratch_bytes(b, n, c, num_heads),
+                          device=qkv.device, dtype=torch.uint8)
     dqkv = torch.empty_like(qkv)
     launch("fused_attention", lib.attn_backward, lib.attn_error_string, qkv.device,
-           qkv, g, stats, dqkv, b, n, c, num_heads, hd ** -0.5)
+           qkv, g, scratch, dqkv, b, n, c, num_heads, hd ** -0.5)
     fused_attention.bwd_launches += 1
     return dqkv
 

@@ -19,6 +19,19 @@ Tolerances, and the maxima observed on the CPU:
   the outputs here stay below 2.4, where an ulp is <= 1.6e-2 but the
   differing roundings land on small elements (observed: B3 max|d|
   9.8e-4, normalised 2.8e-3; B4 1.95e-3, normalised 2.1e-3).
+
+``test_b4_kernel_arithmetic_matches_pallas`` holds a model of the card
+kernel's own arithmetic (csrc/attn.cu), where it departs from the plain
+version, against ``_fused_bwd``: the row statistics from one online sweep
+over 64-key chunks (per thread of a row: running max, rescaled sum and
+unnormalised D; the four threads merged at the end), and P as one exp2
+of the logits scaled by hd^-0.5·log2(e) less the row max plus log2 of
+the row sum, in place of exp and a division per pair. Head dims 16 and
+32 at N not a multiple of 64, and logits scaled x8 so that one key
+dominates each row. Limits: fp32 max|d| <= 1e-5·max(1, max|ref|)
+(observed 6.6e-7; 3.0e-5 at x8, where dk reaches 19.8); bf16 one bf16
+ulp of the largest reference value and not below 3.9e-3, the card
+tests' limit (observed 9.8e-4; 3.1e-2 at x8, a quarter of dk's ulp).
 """
 
 import jax
@@ -84,6 +97,85 @@ def test_b4_plain_matches_pallas(b, n, c, h, dtype):
     for g, w in zip(got, want):
         assert g.dtype == DT[dtype][1]
         _assert_close(g, w, dtype)
+
+
+LOG2E = np.float32(1.4426950408889634)
+
+
+def _kernel_bwd_model(q, k, v, g, num_heads, dtype):
+    """B4 as csrc/attn.cu computes it, for float32 numpy [B, N, C] inputs
+    already in the working dtype: (dq, dk, dv) as float32 arrays rounded
+    to ``dtype``. The products are float32 matmuls (the tensor cores' own
+    order of sums is not modelled); P and dS round to ``dtype`` before
+    them, as on the card in bf16."""
+    f32 = np.float32
+    rnd = (lambda x: np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))) \
+        if dtype == "bf16" else (lambda x: x.astype(f32))
+    b, n, c = q.shape
+    hd = c // num_heads
+    heads = [x.reshape(b, n, num_heads, hd).transpose(0, 2, 1, 3) for x in (q, k, v, g)]
+    qh, kh, vh, gh = heads
+    scale = f32(hd ** -0.5)
+    scale2 = f32(scale * LOG2E)
+    s = (qh @ kh.transpose(0, 1, 3, 2)).astype(f32)
+    dp = (gh @ vh.transpose(0, 1, 3, 2)).astype(f32)
+
+    def ex2_of_fma(x, mu):  # exp2(fma(x, scale2, -mu)), one rounding of the argument
+        return np.exp2((x.astype(np.float64) * scale2 - mu).astype(f32)).astype(f32)
+
+    # Statistics: thread t of a row's four holds keys 8j + 2t + {0, 1} of
+    # every 64-key chunk, in the order j, then the pair.
+    m = np.full((b, num_heads, n, 4), -np.inf, f32)
+    lsum = np.zeros_like(m)
+    dsum = np.zeros_like(m)
+    for k0 in range(0, n, 64):
+        cols = [[k0 + 8 * j + 2 * t + e for j in range(8) for e in range(2)] for t in range(4)]
+        vals = np.stack([np.stack([s[..., x] if x < n else np.full(s.shape[:-1], -np.inf, f32)
+                                   for x in cs], -1) for cs in cols], -2)  # [.., 4, 16]
+        dps = np.stack([np.stack([dp[..., x] if x < n else np.zeros(dp.shape[:-1], f32)
+                                  for x in cs], -1) for cs in cols], -2)
+        mc = np.maximum(m, vals.max(-1) * scale2)
+        mu = np.where(mc == -np.inf, f32(0), mc)
+        alpha = np.exp2(m - mu).astype(f32)
+        lsum, dsum = lsum * alpha, dsum * alpha
+        for i in range(16):
+            p = ex2_of_fma(vals[..., i], mu)
+            lsum = lsum + p
+            dsum = (p.astype(np.float64) * dps[..., i] + dsum).astype(f32)  # fmaf
+        m = mc
+    mx = m.max(-1)
+    f = np.exp2(m - mx[..., None]).astype(f32)
+    lw, dw = lsum * f, dsum * f
+    lt = (lw[..., 0] + lw[..., 1]) + (lw[..., 2] + lw[..., 3])
+    dt = (dw[..., 0] + dw[..., 1]) + (dw[..., 2] + dw[..., 3])
+    m2 = (mx + np.log2(lt)).astype(f32)
+    dd = dt / lt
+    # The main pass: P once per pair, dS from the fp32 P and dP.
+    pn = ex2_of_fma(s, m2[..., None])
+    dv = rnd(pn).transpose(0, 1, 3, 2) @ gh
+    ds = rnd(((dp - dd[..., None]) * pn) * scale)
+    dq, dk = ds @ kh, ds.transpose(0, 1, 3, 2) @ qh
+    return tuple(rnd(x.transpose(0, 2, 1, 3).reshape(b, n, c)) for x in (dq, dk, dv))
+
+
+# (b, n, c, heads, logit scale): head dims 16 and 32, N not a multiple of 64
+KERNEL_SHAPES = [(2, 100, 64, 4, 1.0), (1, 150, 96, 3, 1.0), (2, 100, 64, 2, 8.0)]
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("b,n,c,h,logit_scale", KERNEL_SHAPES,
+                         ids=["hd16-n100", "hd32-n150", "hd32-n100-x8"])
+def test_b4_kernel_arithmetic_matches_pallas(b, n, c, h, logit_scale, dtype):
+    (qj, kj, vj, gj), _ = _inputs((b, n, c), dtype, seed=2)
+    qj = (qj.astype(jnp.float32) * logit_scale).astype(qj.dtype)  # exact: a power of 2
+    want = _fused_bwd(qj, kj, vj, gj, h, True)
+    got = _kernel_bwd_model(*(_np(x) for x in (qj, kj, vj, gj)), h, dtype)
+    for g, w in zip(got, want):
+        d, top = np.abs(g - _np(w)).max(), np.abs(_np(w)).max()
+        if dtype == "fp32":
+            assert d <= 1e-5 * max(1.0, top), (d, top)
+        else:
+            assert d <= max(3.9e-3, 2.0 ** (np.floor(np.log2(top)) - 7)), (d, top)
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])

@@ -20,7 +20,9 @@ paths and at ragged M, N and K: max|d| <= 2^-5 * max(1, max|ref|), the
 limit of B5 and B6, whose products it runs (kernel and plain version
 round at the same points and sum in another order). B2 and B3 also at
 N = 1 (the attention core's on-chip route, which holds up to 576 keys)
-and N = 577 and 641 (its two-pass route).
+and N = 577 and 641 (its two-pass route). B3 and B4 also on logits
+scaled x8 (one key dominates each row) at the same limit, and B4 gives
+the same bits on two calls.
 """
 
 import numpy as np
@@ -113,15 +115,20 @@ def _ulp_limit(ref) -> float:
     return max(3.9e-3, 2.0 ** (np.floor(np.log2(top)) - 7))
 
 
-ATTN_SHAPES = [(8, 576, 512, 16), (8, 576, 768, 12), (16, 288, 768, 12), (2, 37, 96, 3),
-               (3, 100, 128, 2), (2, 70, 48, 3), (2, 577, 128, 2), (3, 1, 96, 3),
+ATTN_SHAPES = [(8, 576, 512, 16), (8, 576, 768, 12), (16, 288, 768, 12), (16, 576, 512, 16),
+               (2, 37, 96, 3), (3, 100, 128, 2), (2, 70, 48, 3), (2, 577, 128, 2), (3, 1, 96, 3),
                (1, 641, 64, 4)]
+# Logits scaled x8 (q times 8): one key dominates each row, so B4's online
+# row statistics rescale their sums as the max grows; every head dim.
+ATTN_X8_SHAPES = [(8, 576, 512, 16), (2, 100, 128, 2), (2, 70, 48, 3), (1, 641, 64, 4)]
 
 
-@pytest.mark.parametrize("b,n,c,h", ATTN_SHAPES)
-def test_fused_attention_matches_plain(cuda_device, b, n, c, h):
+@pytest.mark.parametrize("b,n,c,h,logit_scale", [s + (1.0,) for s in ATTN_SHAPES]
+                         + [s + (8.0,) for s in ATTN_X8_SHAPES])
+def test_fused_attention_matches_plain(cuda_device, b, n, c, h, logit_scale):
     rng = np.random.default_rng(2)
     qkv = _t(rng, (b, n, 3 * c), cuda_device, dtype=torch.bfloat16)
+    qkv[..., :c] *= logit_scale  # exact: a power of 2
     g = _t(rng, (b, n, c), cuda_device, dtype=torch.bfloat16)
     n0, m0 = fused_attention.launches, fused_attention.bwd_launches
     with torch.no_grad():
@@ -136,6 +143,19 @@ def test_fused_attention_matches_plain(cuda_device, b, n, c, h):
     assert bool(torch.isfinite(got.float()).all() and torch.isfinite(dgot.float()).all())
     assert float((got.float() - want.float()).abs().max()) <= _ulp_limit(want)
     assert float((dgot.float() - dwant.float()).abs().max()) <= _ulp_limit(dwant)
+
+
+@pytest.mark.parametrize("b,n,c,h", [(8, 576, 512, 16), (16, 288, 768, 12), (2, 577, 128, 2)])
+def test_fused_attention_bwd_is_deterministic(cuda_device, b, n, c, h):
+    """B4 gives the same bits on two calls with the same inputs (each
+    (batch, head) is one block that adds its dQ partials in a fixed
+    order; no atomics)."""
+    rng = np.random.default_rng(13)
+    qkv = _t(rng, (b, n, 3 * c), cuda_device, dtype=torch.bfloat16)
+    g = _t(rng, (b, n, c), cuda_device, dtype=torch.bfloat16)
+    first = fused_attention_bwd(qkv, g, h)
+    torch.cuda.synchronize()
+    assert torch.equal(fused_attention_bwd(qkv, g, h), first)
 
 
 def test_fused_attention_autograd_is_b4(cuda_device):
