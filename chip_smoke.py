@@ -22,9 +22,12 @@ Phases, one line each on stdout:
      between CUDA events) of the kernel, its plain version and one
      PyTorch library call or composition as a yardstick, beside the
      card's bound for the same work; B3/B4 also at the MAE encoder's
-     N = 288 and the MAE decoder's [16, 576, 512] (B4's yardstick: SDPA
-     forward + backward graph-replayed, less SDPA's forward; B4's line
-     also gives each of its two passes' device ms, from torch.profiler);
+     N = 288 and the MAE decoder's [16, 576, 512], B3 also at B2's
+     encoder shape [16, 576, 768] (B4's yardstick: SDPA forward +
+     backward graph-replayed, less SDPA's forward; B4's line also gives
+     each of its two passes' device ms, from torch.profiler), with a
+     `core` line per shape: how the attention core runs there (route,
+     blocks launched, blocks per SM, shared bytes per block);
   4. forward: full-width mae_vit_base6_patch16 in the bf16 fast mode,
      random weights from torch.Generator seed 0, 16 windows — the kernel
      path against the same model with every kernel swapped for its
@@ -332,41 +335,67 @@ def attn_phase(torch, dev):
     """B3 and B4 at the train step's shapes: [8, 576, 512] with 16 heads
     (decoder) and [8, 576, 768] with 12 (encoder), and at the pretrain
     step's: the encoder's [16, 288, 768] with 12 (the 288 visible tokens
-    of a 0.5 mask) and the decoder's [16, 576, 512] with 16; packed qkv."""
+    of a 0.5 mask) and the decoder's [16, 576, 512] with 16; B3 also at
+    B2's encoder shape [16, 576, 768] with 12, the core of B2's step 3;
+    packed qkv. Each shape's ``core`` line gives the attention core's
+    plan (``fused_attn.core_plan``)."""
     import torch.nn.functional as F
     from countr_tpu_torch.ops.fused_attn import (
-        attention_bwd_plain, attention_exp2, fused_attention_bwd, fused_attention_qkv,
+        attention_bwd_plain, attention_exp2, core_plan, fused_attention_bwd, fused_attention_qkv,
     )
 
     rng = np.random.default_rng(5)
     bf = torch.bfloat16
     fwd, bwd = [], []
     for b, n, c, h in ((TRAIN_BATCH, 576, 512, 16), (TRAIN_BATCH, 576, 768, 12),
-                       (PRETRAIN_BATCH, 288, 768, 12), (PRETRAIN_BATCH, 576, 512, 16)):
+                       (PRETRAIN_BATCH, 288, 768, 12), (PRETRAIN_BATCH, 576, 512, 16),
+                       (WINDOWS, 576, 768, 12)):
         hd = c // h
+        with_b4 = (b, n, c, h) != (WINDOWS, 576, 768, 12)
+        say("core", shape=[b, n, c, h], **core_plan(b, n, c, h))
 
         def t(*shape):
             return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dev, bf)
 
         qkvs = [t(b, n, 3 * c) for _ in range(4)]  # 4 sets > the 50 MB L2
-        gs = [t(b, n, c) for _ in range(4)]
-        qkv, g = qkvs[0], gs[0]
+        gs = [t(b, n, c) for _ in range(4)] if with_b4 else []
+        qkv = qkvs[0]
         with torch.no_grad():
             got = fused_attention_qkv(qkv, h)
-            dgot = fused_attention_bwd(qkv, g, h)
             torch.cuda.synchronize()
             want = attention_exp2(*qkv.chunk(3, dim=-1), h)
-            dwant = torch.cat(attention_bwd_plain(*qkv.chunk(3, dim=-1), g, h), dim=-1)
-        err, derr = max_abs(got, want), max_abs(dgot, dwant)
-        lim, dlim = attn_limit(want), attn_limit(dwant)
-        if not err <= lim or not derr <= dlim:
-            raise AssertionError(f"B3/B4 [{b},{n},{c}]x{h} max|d| {err} / {derr} > {lim} / {dlim}")
+        err, lim = max_abs(got, want), attn_limit(want)
+        if not err <= lim:
+            raise AssertionError(f"B3 [{b},{n},{c}]x{h} max|d| {err} > {lim}")
 
         def heads(x):
             return x.view(b, n, 3, h, hd).permute(2, 0, 3, 1, 4)
 
         def sdpa(x):
             return F.scaled_dot_product_attention(*heads(x))
+
+        with torch.no_grad():
+            args = [(x,) for x in qkvs]
+            b3_ms = graph_ms(torch, lambda x: fused_attention_qkv(x, h), args)
+            b3_plain = graph_ms(torch, lambda x: attention_exp2(*x.chunk(3, dim=-1), h), args,
+                                iters=4)
+            b3_lib = graph_ms(torch, sdpa, args)
+        bm, bb = bound(4 * b * n * n * c, 4 * b * n * c * 2)
+        fwd.append(dict(shape=[b, n, c, h], max_abs_err=err, limit=lim, ms=b3_ms, plain_ms=b3_plain,
+                        library_ms=b3_lib, library="scaled_dot_product_attention",
+                        bound_ms=bm, bound_by=bb, gflop=4 * b * n * n * c / 1e9))
+        say("kernel", name="B3 fused_attention", **fwd[-1])
+        if not with_b4:
+            continue
+
+        g = gs[0]
+        with torch.no_grad():
+            dgot = fused_attention_bwd(qkv, g, h)
+            torch.cuda.synchronize()
+            dwant = torch.cat(attention_bwd_plain(*qkv.chunk(3, dim=-1), g, h), dim=-1)
+        derr, dlim = max_abs(dgot, dwant), attn_limit(dwant)
+        if not derr <= dlim:
+            raise AssertionError(f"B4 [{b},{n},{c}]x{h} max|d| {derr} > {dlim}")
 
         # The library's backward: SDPA forward + backward under autograd,
         # less SDPA's forward alone, both graph-replayed on leaves that no
@@ -392,16 +421,9 @@ def attn_phase(torch, dev):
         def sdpa_bwd(i):
             return torch.autograd.grad(outs[i], leaves[i], ghs[i], retain_graph=True)
 
-        f4, f10 = 4 * b * n * n * c, 10 * b * n * n * c
-        by3, by4 = 4 * b * n * c * 2, 7 * b * n * c * 2
-
+        f10 = 10 * b * n * n * c
         with torch.no_grad():
-            args = [(x,) for x in qkvs]
             bargs = list(zip(qkvs, gs))
-            b3_ms = graph_ms(torch, lambda x: fused_attention_qkv(x, h), args)
-            b3_plain = graph_ms(torch, lambda x: attention_exp2(*x.chunk(3, dim=-1), h), args,
-                                iters=4)
-            b3_lib = graph_ms(torch, sdpa, args)
             b4_ms = graph_ms(torch, lambda x, gg: fused_attention_bwd(x, gg, h), bargs)
             b4_plain = graph_ms(torch, lambda x, gg: attention_bwd_plain(
                 *x.chunk(3, dim=-1), gg, h), bargs, iters=4)
@@ -410,12 +432,7 @@ def attn_phase(torch, dev):
             cycle = itertools.cycle(bargs)
             passes = profile_run(torch, lambda: fused_attention_bwd(*next(cycle), h),
                                  12)["port_kernels"]
-        bm, bb = bound(f4, by3)
-        fwd.append(dict(shape=[b, n, c, h], max_abs_err=err, limit=lim, ms=b3_ms, plain_ms=b3_plain,
-                        library_ms=b3_lib, library="scaled_dot_product_attention",
-                        bound_ms=bm, bound_by=bb, gflop=f4 / 1e9))
-        say("kernel", name="B3 fused_attention", **fwd[-1])
-        bm, bb = bound(f10, by4)
+        bm, bb = bound(f10, 7 * b * n * c * 2)
         bwd.append(dict(shape=[b, n, c, h], max_abs_err=derr, limit=dlim, ms=b4_ms,
                         plain_ms=b4_plain, library_ms=b4_lib,
                         library="SDPA forward + backward (torch.autograd.grad) less SDPA "
@@ -713,7 +730,7 @@ def profile_run(torch, run, steps: int):
     kernels = [r for r in rows if not r[0].startswith(("aten::", "Optimizer.", "autograd::"))]
     kernels.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in kernels)
-    ours = ("_ln_fwd", "ln_rows_kernel", "gemm_nt_kernel", "attn_onchip_kernel",
+    ours = ("_ln_fwd", "ln_rows_kernel", "gemm_nt_kernel", "attn_resident_kernel",
             "attn_twopass_kernel", "bwd_stats_kernel", "bwd_main_kernel")
     return dict(
         wall_ms=wall_ms, device_busy_ms=busy, idle_share=max(0.0, 1 - busy / wall_ms),
@@ -1113,8 +1130,9 @@ def main() -> int:
                             max_rel_err=max(x["max_rel_err"] for x in block_bwd_shapes),
                             shapes=block_bwd_shapes)),
         entry("B3 fused_attention", "cuda", "countr_tpu_torch/csrc/attn.cu",
-              "countr_tpu/ops/pallas_attn.py:33", "train", b3_shapes, redesigned_in=2,
-              inherits="the attention core of B2, csrc/attention.cuh launch_attn_any"),
+              "countr_tpu/ops/pallas_attn.py:33", "train", b3_shapes, redesigned_in=6,
+              core="csrc/attention.cuh attn_resident_kernel, launched by launch_attn_any; "
+                   "B2 runs it as its step 3"),
         entry("B4 fused_attention backward", "cuda", "countr_tpu_torch/csrc/attn.cu",
               "countr_tpu/ops/pallas_attn.py:93", "train", b4_shapes, redesigned_in=5,
               passes=b4_shapes[0]["passes"]),

@@ -13,42 +13,42 @@
 // max must be known before any p is formed. No N x N tensor reaches
 // device memory.
 //
-// What bounds it on the H100: tensor-core operations, 4*B*N^2*C FLOP
-// (QK^T and PV), against q, k, v in and the output out. The product
-// count and the tensor-core instruction are what the design can change:
-//   attn_onchip_kernel (N <= ATTN_ONCHIP_MAX_N = 576): QK^T once per key
-//     block. Persistent blocks, one per SM, walk the (batch, head,
-//     64-query tile) items: three consumer warpgroups, one per third of
-//     the 64-key chunks, and a producer warp. Pass 1 computes each
-//     chunk's logits with one wgmma per 16 of the head dim (Q and K from
-//     swizzled shared memory), keeps the running row max in registers and
-//     parks the scaled fp32 logits in shared memory, each thread its own
-//     fragment (conflict-free, no barrier to read them back); 64 x 576
-//     fp32 logits are 144 KB of the 227. The parts' maxima meet in shared
-//     memory. Pass 2 reads the parked logits, forms p and the row sums,
-//     and runs bf16(p) . V as wgmmas with p from registers; the parts' PV
-//     partials and row sums are added in fp32, in part order, and the
-//     first part stores bf16(acc / s). The producer brings each item's Q
-//     (once the previous item's pass 1 is over), then its K and V chunks
-//     by TMA (a 3-D map over [B, N, 3C] that zero-fills rows past N) into
-//     a 3-buffer ring on mbarriers, without a break between items; each
-//     consumer warp frees a buffer as soon as its wgmma has read it, so no
-//     step waits on a block-wide barrier.
-//     Why this shape: the parked logits hold the SM to one block, so no
-//     other block hides its latencies. Fed by a cp.async ring behind a
-//     barrier per step, it ran about as fast with its products taken out
-//     as with them: the K/V stream, not the tensor cores, set its pace.
-//     mma.sync in place of wgmma, or two parts (10 steps at N = 576)
-//     instead of three (6), were slower still. The tensor cores do not
-//     bound it now either: with its arithmetic taken out, the TMA-fed
-//     kernel (before it became persistent) kept most of its time, and a
-//     deeper ring at hd 32 changed nothing. Each 64-query item reads its
-//     head's K and V again, the traffic a larger query tile would cut if
-//     the logits of more rows fitted on chip.
-//   attn_twopass_kernel (any N): the earlier route for N past the limit.
-//     mma.sync, 4 warps of 16 query rows, everything in registers, two
-//     passes over the keys: the exact row max, then QK^T again for p and
-//     PV, so 1.5x the products.
+// What bounds it on the H100: 4*B*N^2*C FLOP of QK^T and PV against q,
+// k, v in and the output out, about as many microseconds of each at the
+// model's shapes (PERF.md). Neither bounded the core it replaces
+// (attn_onchip_kernel), which ran 5-10x over that bound: it
+// parked a 64-query tile's fp32 logits in shared memory (144 KB at
+// N = 576), which held each SM to one block, and each 64-query item read
+// its head's K and V again (9 times per head at N = 576).
+//
+// What the design does about it:
+//   attn_resident_kernel (N <= attn_resident_max_n<HD>(): 832 keys at
+//     hd 64, 1728 at hd 32, 3520 at hd 16): a block brings its head's
+//     whole K and V into shared memory once, by TMA (a 3-D map over
+//     [B, N, 3C] that zero-fills rows past N), a 64-key chunk per
+//     mbarrier so the first chunk's products start before the last
+//     arrives. Consumer warpgroups (2 or 4 a block, no producer warp)
+//     each take their own 64-query tiles and keep no logits: sweep 1
+//     runs QK^T chunk by chunk (SS wgmma) for the exact row max alone,
+//     merged over a row's four threads; sweep 2 runs QK^T again, forms
+//     p, its row sums and bf16(p) in registers and feeds them to PV as
+//     the A operand of an RS wgmma (V read MN-major), issued together
+//     with the next chunk's QK^T. That is 1.5x the products of computing
+//     QK^T once, and it frees the shared memory that held the logits:
+//     blocks run 2 to an SM where K, V and the Q tiles fit in half of it
+//     (hd 32 at N = 576, hd 64 at N = 288), else 1 block of 4
+//     warpgroups. Blocks are persistent, one per resident slot: block i
+//     takes the i-th equal share of the (batch, head, 64-query tile)
+//     sequence, so every SM gets the same number of tiles to within one,
+//     and loads K and V once per head its share touches (a block-wide
+//     barrier before the next head's K and V overwrite the last). Each
+//     warpgroup's next Q tile comes by TMA into a second buffer while it
+//     works on this one (into the same buffer, once its last QK^T is
+//     done, where shared memory has no room for two).
+//   attn_twopass_kernel (any N): the route for N past the resident
+//     limit. mma.sync, 4 warps of 16 query rows, everything in
+//     registers, two passes over the keys streamed from device memory:
+//     the exact row max, then QK^T again for p and PV.
 // Both keep Q, the logits and p out of device memory; only the order of
 // the fp32 sums differs between them.
 
@@ -67,9 +67,7 @@ namespace {
 constexpr int AQ = 64;  // queries per attention block
 constexpr int AK = 64;  // keys per chunk
 constexpr int ATTN_THREADS = 128;
-constexpr int ATTN_PARTS = 3;  // warpgroups of the on-chip kernel, one per third of the keys
-constexpr int ATTN_ONCHIP_THREADS = 128 * ATTN_PARTS + 32;  // + one producer warp
-constexpr int ATTN_ONCHIP_MAX_N = 576;  // 9 chunks, 3 per warpgroup: 144 KB of logits
+constexpr int ATTN_MAX_WGS = 4;  // consumer warpgroups of a resident block, at most
 
 __device__ __forceinline__ float bf2f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ bf16 f2bf(float v) { return __float2bfloat16(v); }
@@ -138,14 +136,33 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+// The same for register A operands of an RS wgmma: kept live and
+// unchanged until this point, so the compiler reuses none of them while
+// the wgmma may still read them.
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) asm volatile("" : "+r"(a[i][x])::"memory");
+}
+// 2^x on the special function unit (ex2.approx, relative error about
+// 2^-22; results below 2^-126 flush to 0, exp2(-inf) = 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 // Writes by this thread's generic proxy (st.shared, cp.async) become
 // visible to the async proxy (wgmma operands, TMA).
 __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// d += A . B^T, m64n64k16, A and B from shared memory (K-major).
-__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da, uint64_t db) {
+// d = A . B^T + (scale_d ? d : 0), m64n64k16, A and B from shared
+// memory (K-major).
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da, uint64_t db,
+                                                int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %34, 0;\n"
@@ -158,7 +175,7 @@ __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da, uin
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
         "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // d += A . B, m64n64k16, A (16 rows per warp, bf16 pairs in the mma
@@ -326,17 +343,14 @@ __host__ __device__ constexpr size_t attn_smem_bytes() {
   return (size_t)(AQ + 4 * AK) * (HD + 8) * sizeof(bf16);  // Q, 2 x (K, V)
 }
 
-constexpr int ATTN_RING = 3;  // buffers of the on-chip kernel's K/V ring
-
-// 1 KB of alignment slack, the Q tile, the ring of 3 buffers x 3 parts
-// of 64-row tiles, 3 x 64 row maxima, 2 x 64 row sums, 12 warps x hc
-// chunks x 32 lanes x 32 fp32 logits, and 2 x 3 + 2 mbarriers: 231,744
-// bytes at HD = 64 and hc = 3.
+// Shared memory of a resident block (attn_resident_kernel) for nch
+// 64-key chunks and wgs warpgroups with qbuf Q buffers each: 1 KB of
+// alignment slack, the Q tiles, K and V of the head, and the mbarriers
+// (one per K chunk, one per V chunk, two per warpgroup's Q).
 template <int HD>
-__host__ __device__ constexpr size_t attn_onchip_smem_bytes(int hc) {
-  return 1024 + (size_t)(1 + ATTN_PARTS * ATTN_RING) * AK * HD * sizeof(bf16) +
-         (2 * ATTN_PARTS - 1) * AQ * sizeof(float) +
-         (size_t)4 * ATTN_PARTS * hc * 32 * 32 * sizeof(float) + (2 * ATTN_RING + 2) * 8;
+__host__ __device__ constexpr size_t attn_resident_smem_bytes(int nch, int wgs, int qbuf) {
+  return 1024 + (size_t)(wgs * qbuf + 2 * nch) * AK * HD * sizeof(bf16) +
+         (size_t)(2 * nch + 2 * wgs) * 8;
 }
 
 // x [B, N, width] bf16 as a 3-D tensor map read in boxes of 1 x 64 rows x
@@ -366,222 +380,206 @@ cudaError_t make_qkv_map(CUtensorMap* map, const bf16* qkv, int B, int N, int C)
   return make_rows_map<HD>(map, qkv, B, N, 3 * C);
 }
 
-// The current device's SM count, read once per process.
-inline int sm_count() {
+// An attribute of the current device, read once per process per
+// attribute.
+template <cudaDeviceAttr A>
+inline int device_attr() {
   static const int n = []() {
     int dev = 0, v = 0;
     cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    return v > 0 ? v : 1;
+    cudaDeviceGetAttribute(&v, A, dev);
+    return v;
   }();
   return n;
 }
 
+// The current device's SM count.
+inline int sm_count() {
+  const int n = device_attr<cudaDevAttrMultiProcessorCount>();
+  return n > 0 ? n : 1;
+}
+
 // qkv [B*N, 3C] (q | k | v, head h at columns h*HD of each) ->
-// att [B*N, C] with N <= ATTN_ONCHIP_MAX_N. Persistent: block b takes the
-// (64-query tile, head, batch) items b, b + gridDim.x, ..., and its
-// producer warp streams them without a break, so no item starts cold.
-// ATTN_PARTS consumer warpgroups, one per part of the key chunks; chunk i
-// of part f is key chunk f*hc + i (hc = ceil(chunks / ATTN_PARTS)). Warp
-// w of a warpgroup holds query rows 16w + lane/4 (+ 8), at columns
-// 2*(lane%4) + {0, 1} of every 8-wide tile (the wgmma and mma accumulator
+// att [B*N, C] with N <= attn_resident_max_n<HD>(). Persistent: block i
+// of G takes tiles [i*tiles/G, (i+1)*tiles/G) of the sequence of `tiles`
+// (batch, head, 64-query tile) items, tile t being query tile t % nq of
+// head t / nq (= b * H + h); warpgroup w of the block takes its tiles
+// t_begin + w, t_begin + w + wgs, ... (wgs = blockDim.x / 128). Warp w
+// of a warpgroup holds query rows 16w + lane/4 (+ 8), at columns
+// 2*(lane%4) + {0, 1} of every 8-wide tile (the wgmma accumulator
 // layout). `map` is qkv as [B][N][3C] in boxes of 1 x 64 x HD with the
-// HD*2-byte swizzle, so rows past N come in as zeros. QK^T is an SS wgmma
-// (Q and the K chunk from shared memory), PV an RS wgmma (bf16 p from
-// registers, V from shared memory read MN-major).
+// HD*2-byte swizzle, so rows past N come in as zeros. qbuf (1 or 2) is
+// the number of Q buffers of each warpgroup.
 template <int HD>
-__global__ void __launch_bounds__(ATTN_ONCHIP_THREADS, 1) attn_onchip_kernel(
-    const __grid_constant__ CUtensorMap map, bf16* __restrict__ att, int B, int N, int C, int H,
-    float scale) {
+__global__ void __launch_bounds__(128 * ATTN_MAX_WGS, 1) attn_resident_kernel(
+    const __grid_constant__ CUtensorMap map, bf16* __restrict__ att, int N, int C, int H,
+    int tiles, float scale, int qbuf) {
   constexpr uint32_t RB = HD * 2, TILE = AK * RB;
-  constexpr int CONSUMERS = 128 * ATTN_PARTS;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
-  unsigned char* sm = smem_raw + (((raw + 1023u) & ~1023u) - raw);  // 1024-aligned
-  const uint32_t q_s = smem_u32(sm);
-  unsigned char* ring = sm + TILE;  // [ATTN_RING buffers][ATTN_PARTS] tiles
-  float* Mx = reinterpret_cast<float*>(sm + (1 + ATTN_PARTS * ATTN_RING) * TILE);  // [parts][AQ]
-  float* Ms = Mx + ATTN_PARTS * AQ;  // [parts - 1][AQ] row sums handed to the first part
-  float* Sp = Ms + (ATTN_PARTS - 1) * AQ;  // [warps][hc][32 registers][32 lanes]
+  const uint32_t base = (raw + 1023u) & ~1023u;  // 1024-aligned, as the swizzle needs
+  const int wgs = blockDim.x >> 7;
+  const int nch = (N + AK - 1) / AK, nq = (N + AQ - 1) / AQ;
+  const uint32_t q_s = base;                      // [wgs][qbuf] Q tiles
+  const uint32_t k_s = q_s + wgs * qbuf * TILE;   // [nch] K chunks
+  const uint32_t v_s = k_s + nch * TILE;          // [nch] V chunks
+  const uint32_t kbar = v_s + nch * TILE;         // [nch]
+  const uint32_t vbar = kbar + 8 * nch;           // [nch]
+  const uint32_t qbar = vbar + 8 * nch;           // [wgs][2]
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int qw = warp & 3, part = warp >> 2, t4 = lane & 3;
-  const int nchunks = (N + AK - 1) / AK, hc = (nchunks + ATTN_PARTS - 1) / ATTN_PARTS;
-  const int steps = 2 * hc;  // per item: pass 1 (K), then pass 2 (V)
-  const int nq = (N + AQ - 1) / AQ, items = nq * H * B;
-  const int mine_items = (items - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
-  // [ATTN_RING] full, [ATTN_RING] empty; Q's full and empty
-  const uint32_t full_bar = smem_u32(Sp + (size_t)4 * ATTN_PARTS * hc * 32 * 32);
-  const uint32_t empty_bar = full_bar + 8 * ATTN_RING, qfull_bar = empty_bar + 8 * ATTN_RING;
-  const uint32_t qempty_bar = qfull_bar + 8;
-  // Item k of this block: its first query, head and batch element.
-  auto item = [&](int k, int& q0, int& h, int& b) {
-    const int it = blockIdx.x + k * gridDim.x;
-    q0 = (it % nq) * AQ;
-    h = (it / nq) % H;
-    b = it / (nq * H);
-  };
+  // The warp index through a shuffle, so the compiler sees it (and the
+  // warpgroup index) uniform across the warp: wgmma on a path it cannot
+  // prove uniform is serialized.
+  const int tid = threadIdx.x, lane = tid & 31, warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int wg = warp >> 2, qw = warp & 3, t4 = lane & 3;
+  const bool leader = (tid & 127) == 0;
+  const int t_begin = (int)((long long)blockIdx.x * tiles / gridDim.x);
+  const int t_end = (int)((long long)(blockIdx.x + 1) * tiles / gridDim.x);
+  const bool ragged = N % AK != 0;  // the last chunk holds keys past N
 
   if (tid == 0) {
-    for (int r = 0; r < ATTN_RING; ++r) {
-      mbar_init(full_bar + 8 * r, 1);
-      mbar_init(empty_bar + 8 * r, ATTN_PARTS * 4);  // every consumer warp
+    for (int c = 0; c < nch; ++c) {
+      mbar_init(kbar + 8 * c, 1);
+      mbar_init(vbar + 8 * c, 1);
     }
-    mbar_init(qfull_bar, 1);
-    mbar_init(qempty_bar, ATTN_PARTS * 4);
+    for (int i = 0; i < 2 * wgs; ++i) mbar_init(qbar + 8 * i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (warp == ATTN_PARTS * 4) {
-    // Producer warp: one thread streams each item's Q (once the previous
-    // item's pass 1 is over), then its K and V chunks of every part, a
-    // ring buffer per step, as soon as the buffer is free.
-    if (lane == 0) {
-      for (int k = 0; k < mine_items; ++k) {
-        int q0, h, b;
-        item(k, q0, h, b);
-        mbar_wait(qempty_bar, (k & 1) ^ 1);
-        mbar_expect_tx(qfull_bar, TILE);
-        tma_load_3d(q_s, &map, qfull_bar, h * HD, q0, b);
-        for (int t = 0; t < steps; ++t) {
-          const int g = k * steps + t, r = g % ATTN_RING;
-          mbar_wait(empty_bar + 8 * r, ((g / ATTN_RING) & 1) ^ 1);
-          const bool v = t >= hc;
-          const int i = v ? t - hc : t, col = (v ? 2 * C : C) + h * HD;
-          int parts = 0;  // parts whose chunk holds keys; the others load nothing
-          while (parts < ATTN_PARTS && (parts * hc + i) * AK < N) ++parts;
-          mbar_expect_tx(full_bar + 8 * r, parts * TILE);
-          for (int f = 0; f < parts; ++f)
-            tma_load_3d(smem_u32(ring + (r * ATTN_PARTS + f) * TILE), &map, full_bar + 8 * r, col,
-                        (f * hc + i) * AK, b);
+  // Tile t's Q into the buffer of this warpgroup's j-th tile.
+  auto load_q = [&](int t, int j) {
+    const int bh = t / nq, buf = j % qbuf;
+    const uint32_t bar = qbar + 8 * (wg * 2 + buf);
+    mbar_expect_tx(bar, TILE);
+    tma_load_3d(q_s + (wg * qbuf + buf) * TILE, &map, bar, (bh % H) * HD, (t % nq) * AQ, bh / H);
+  };
+  // Head bh's K and V, a chunk per mbarrier, K first.
+  auto load_kv = [&](int bh) {
+    const int h = bh % H, b = bh / H;
+    for (int c = 0; c < nch; ++c) {
+      mbar_expect_tx(kbar + 8 * c, TILE);
+      tma_load_3d(k_s + c * TILE, &map, kbar + 8 * c, C + h * HD, c * AK, b);
+    }
+    for (int c = 0; c < nch; ++c) {
+      mbar_expect_tx(vbar + 8 * c, TILE);
+      tma_load_3d(v_s + c * TILE, &map, vbar + 8 * c, 2 * C + h * HD, c * AK, b);
+    }
+  };
+  if (leader && t_begin + wg < t_end) load_q(t_begin + wg, 0);
+  if (tid == 0) load_kv(t_begin / nq);
+
+  int j = 0;  // tiles of this warpgroup so far
+  for (int bh = t_begin / nq, seg = 0; bh * nq < t_end; ++bh, ++seg) {
+    if (seg > 0) {
+      __syncthreads();  // every warpgroup is done with the last head's K and V
+      if (tid == 0) load_kv(bh);
+    }
+    const uint32_t par = seg & 1;
+    const int lo = max(t_begin, bh * nq), hi = min(t_end, (bh + 1) * nq);
+    int t = lo + ((t_begin + wg - lo) % wgs + wgs) % wgs;  // this warpgroup's first tile >= lo
+    for (; t < hi; t += wgs, ++j) {
+      const int buf = j % qbuf;
+      const bool next = t + wgs < t_end;
+      if (qbuf == 2 && next) {
+        // The other buffer was last read by this warpgroup's previous
+        // tile; the barrier makes sure all four of its warps are past it.
+        named_bar_sync(1 + wg, 128);
+        if (leader) load_q(t + wgs, j + 1);
+      }
+      mbar_wait(qbar + 8 * (wg * 2 + buf), (j / qbuf) & 1);
+      const uint64_t qd = swz_desc<HD>(q_s + (wg * qbuf + buf) * TILE);
+
+      // S = Q K_c^T for chunk c into d (issued and committed, not waited).
+      auto s_issue = [&](float (&d)[32], int c) {
+        mbar_wait(kbar + 8 * c, par);
+        fence_regs(d);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          wgmma_ss_m64n64(d, qd + 2 * kk, swz_desc<HD>(k_s + c * TILE) + 2 * kk, kk > 0);
+        wgmma_commit();
+      };
+      // Sweep 1: the exact row max of the raw products (scale > 0 keeps
+      // their order, so max(s) * scale is the max of the scaled logits),
+      // -inf past N. One chunk's product per wait: reading one product
+      // while the next is in flight makes ptxas serialize every wgmma of
+      // the kernel, and two products per wait spill at hd 64.
+      float mrow[2] = {-CUDART_INF_F, -CUDART_INF_F};
+      float sa[32];
+      for (int c = 0; c < nch; ++c) {
+        s_issue(sa, c);
+        wgmma_wait<0>();
+        fence_regs(sa);
+        const bool mask = ragged && c == nch - 1;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int key = c * AK + (i >> 2) * 8 + t4 * 2 + (i & 1);
+          const float v = mask && key >= N ? -CUDART_INF_F : sa[i];
+          mrow[(i >> 1) & 1] = fmaxf(mrow[(i >> 1) & 1], v);
         }
       }
-    }
-    return;
-  }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        mrow[hh] = fmaxf(mrow[hh], __shfl_xor_sync(0xffffffffu, mrow[hh], 1));
+        mrow[hh] = fmaxf(mrow[hh], __shfl_xor_sync(0xffffffffu, mrow[hh], 2));
+        mrow[hh] *= scale;
+      }
 
-  float* mine = Sp + (size_t)warp * hc * 32 * 32 + lane;  // [hc][32] x stride 32
-  for (int k = 0; k < mine_items; ++k) {
-    float mrow[2] = {-CUDART_INF_F, -CUDART_INF_F};
-    float srow[2] = {0.f, 0.f};
-    float o[HD / 2];
+      // Sweep 2: S again; p = exp2(s * scale - max) in fp32, s += p,
+      // acc += bf16(p) . V_c, with chunk c + 1's S issued behind the PV.
+      float srow[2] = {0.f, 0.f};
+      float o[HD / 2];
 #pragma unroll
-    for (int e = 0; e < HD / 2; ++e) o[e] = 0.f;
-    mbar_wait(qfull_bar, k & 1);
-
-    for (int t = 0; t < steps; ++t) {
-      const int g = k * steps + t, r = g % ATTN_RING;
-      mbar_wait(full_bar + 8 * r, (g / ATTN_RING) & 1);
-      const bool second = t >= hc;
-      const int i = second ? t - hc : t;
-      const int k0 = (part * hc + i) * AK;
-      const uint32_t tile = smem_u32(ring + (r * ATTN_PARTS + part) * TILE);
-      float* park = mine + (size_t)i * 32 * 32;
-      if (k0 < N) {  // uniform across the warpgroup
-        if (!second) {
-          // Pass 1: the chunk's scaled fp32 logits, once; -inf past N.
-          float sc[32];
+      for (int e = 0; e < HD / 2; ++e) o[e] = 0.f;
+      s_issue(sa, 0);
+      wgmma_wait<0>();
+      for (int c = 0; c < nch; ++c) {
+        fence_regs(sa);
+        const bool mask = ragged && c == nch - 1;
+        uint32_t pa[AK / 16][4];
 #pragma unroll
-          for (int e = 0; e < 32; ++e) sc[e] = 0.f;
-          fence_regs(sc);
-          wgmma_fence();
+        for (int kk = 0; kk < AK / 16; ++kk) {
+          float p[8];
 #pragma unroll
-          for (int kk = 0; kk < HD / 16; ++kk)
-            wgmma_ss_m64n64(sc, swz_desc<HD>(q_s) + 2 * kk, swz_desc<HD>(tile) + 2 * kk);
-          wgmma_commit();
-          wgmma_wait<0>();
-          fence_regs(sc);
-          if (lane == 0) mbar_arrive(empty_bar + 8 * r);  // this warp is done with the buffer
-#pragma unroll
-          for (int j = 0; j < AK / 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int key = k0 + j * 8 + t4 * 2 + (e & 1);
-              const float l = key < N ? sc[4 * j + e] * scale : -CUDART_INF_F;
-              mrow[e >> 1] = fmaxf(mrow[e >> 1], l);
-              park[(j * 4 + e) * 32] = l;
-            }
-        } else {
-          // Pass 2: p = exp2(l - max) in fp32, s += p, acc += bf16(p) . V.
-          uint32_t pa[AK / 16][4];
-#pragma unroll
-          for (int kk = 0; kk < AK / 16; ++kk) {
-            float p[8];
-#pragma unroll
-            for (int e = 0; e < 8; ++e) {
-              p[e] = exp2f(park[(kk * 8 + e) * 32] - mrow[(e >> 1) & 1]);
-              srow[(e >> 1) & 1] += p[e];
-            }
-            pa[kk][0] = pack_bf16x2(p[0], p[1]);
-            pa[kk][1] = pack_bf16x2(p[2], p[3]);
-            pa[kk][2] = pack_bf16x2(p[4], p[5]);
-            pa[kk][3] = pack_bf16x2(p[6], p[7]);
+          for (int e = 0; e < 8; ++e) {
+            const int i = kk * 8 + e, key = c * AK + (i >> 2) * 8 + t4 * 2 + (i & 1);
+            const float l = mask && key >= N ? -CUDART_INF_F : sa[i] * scale;
+            p[e] = ex2(l - mrow[(e >> 1) & 1]);
+            srow[(e >> 1) & 1] += p[e];
           }
-          fence_regs(o);
-          wgmma_fence();
+          pa[kk][0] = pack_bf16x2(p[0], p[1]);
+          pa[kk][1] = pack_bf16x2(p[2], p[3]);
+          pa[kk][2] = pack_bf16x2(p[4], p[5]);
+          pa[kk][3] = pack_bf16x2(p[6], p[7]);
+        }
+        if (qbuf == 1 && next && c == nch - 1) {
+          // Q's last product is done in all four warps: the next tile's Q
+          // may take its buffer.
+          named_bar_sync(1 + wg, 128);
+          if (leader) load_q(t + wgs, j + 1);
+        }
+        mbar_wait(vbar + 8 * c, par);
+        fence_regs(o);
+        wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < AK / 16; ++kk)
-            wgmma_rs_pv<HD>(o, pa[kk], swz_desc<HD>(tile + kk * 16 * RB));
+        for (int kk = 0; kk < AK / 16; ++kk)
+          wgmma_rs_pv<HD>(o, pa[kk], swz_desc<HD>(v_s + c * TILE + kk * 16 * RB));
+        if (c + 1 < nch)
+          s_issue(sa, c + 1);  // commits the PV with it
+        else
           wgmma_commit();
-          wgmma_wait<0>();
-          fence_regs(o);
-          if (lane == 0) mbar_arrive(empty_bar + 8 * r);
-        }
-      } else if (lane == 0) {
-        mbar_arrive(empty_bar + 8 * r);  // a chunk past the last: nothing to read
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(pa);
       }
-      if (t == hc - 1) {
-        // End of pass 1: Q may make way for the next item's, and the
-        // parts' row maxima meet in shared memory.
-        if (lane == 0) mbar_arrive(qempty_bar);
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          mrow[hh] = fmaxf(mrow[hh], __shfl_xor_sync(0xffffffffu, mrow[hh], 1));
-          mrow[hh] = fmaxf(mrow[hh], __shfl_xor_sync(0xffffffffu, mrow[hh], 2));
-          if (t4 == 0) Mx[part * AQ + qw * 16 + (lane >> 2) + hh * 8] = mrow[hh];
-        }
-        named_bar_sync(1, CONSUMERS);
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int rr = qw * 16 + (lane >> 2) + hh * 8;
-          float m = Mx[rr];
-#pragma unroll
-          for (int f = 1; f < ATTN_PARTS; ++f) m = fmaxf(m, Mx[f * AQ + rr]);
-          mrow[hh] = m;
-        }
-      }
-    }
 
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      srow[hh] += __shfl_xor_sync(0xffffffffu, srow[hh], 1);
-      srow[hh] += __shfl_xor_sync(0xffffffffu, srow[hh], 2);
-    }
-    // The other parts hand their PV partials (through their own first
-    // parking slot, read in full) and row sums to the first part, which
-    // adds them in part order and stores bf16(acc / s); the second
-    // barrier keeps the slots until it has read them.
-    if (part > 0) {
-#pragma unroll
-      for (int e = 0; e < HD / 2; ++e) mine[e * 32] = o[e];
-      if (t4 == 0) {
-        Ms[(part - 1) * AQ + qw * 16 + (lane >> 2)] = srow[0];
-        Ms[(part - 1) * AQ + qw * 16 + (lane >> 2) + 8] = srow[1];
+      for (int hh = 0; hh < 2; ++hh) {
+        srow[hh] += __shfl_xor_sync(0xffffffffu, srow[hh], 1);
+        srow[hh] += __shfl_xor_sync(0xffffffffu, srow[hh], 2);
       }
-    }
-    named_bar_sync(1, CONSUMERS);
-    if (part == 0) {
-#pragma unroll
-      for (int f = 1; f < ATTN_PARTS; ++f) {
-        const float* xf = Sp + (size_t)(f * 4 + qw) * hc * 32 * 32 + lane;
-#pragma unroll
-        for (int e = 0; e < HD / 2; ++e) o[e] += xf[e * 32];
-        srow[0] += Ms[(f - 1) * AQ + qw * 16 + (lane >> 2)];
-        srow[1] += Ms[(f - 1) * AQ + qw * 16 + (lane >> 2) + 8];
-      }
-      int q0, h, b;
-      item(k, q0, h, b);
+      const int q0 = (t % nq) * AQ, b = bh / H, h = bh % H;
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int n = q0 + qw * 16 + (lane >> 2) + hh * 8;
@@ -596,7 +594,6 @@ __global__ void __launch_bounds__(ATTN_ONCHIP_THREADS, 1) attn_onchip_kernel(
         }
       }
     }
-    named_bar_sync(1, CONSUMERS);
   }
 }
 
@@ -759,37 +756,79 @@ __global__ void __launch_bounds__(ATTN_THREADS) attn_twopass_kernel(
   }
 }
 
+// How launch_attn runs the core for one call: the resident kernel with
+// `wgs` warpgroups and `qbuf` Q buffers each, `blocks` persistent blocks
+// (`per_sm` of them resident on an SM, by shared memory), `smem` bytes a
+// block; or the two-pass kernel (resident 0) past the resident limit.
+struct AttnPlan {
+  int resident, wgs, qbuf, per_sm, blocks;
+  size_t smem;
+};
+
+// The first of these that fits the card's shared memory: 2 warpgroups
+// with 2 (else 1) Q buffers at 2 blocks an SM, then 4 warpgroups with 2
+// (else 1) at 1 block an SM, then 2 warpgroups with 1.
+template <int HD>
+AttnPlan attn_plan(int B, int N, int H) {
+  static constexpr int kConfigs[5][3] = {{2, 2, 2}, {2, 1, 2}, {4, 2, 1}, {4, 1, 1}, {2, 1, 1}};
+  const size_t sm_smem = device_attr<cudaDevAttrMaxSharedMemoryPerMultiprocessor>();
+  const size_t block_smem = device_attr<cudaDevAttrMaxSharedMemoryPerBlockOptin>();
+  const size_t reserved = device_attr<cudaDevAttrReservedSharedMemoryPerBlock>();
+  const int nch = (N + AK - 1) / AK, nq = (N + AQ - 1) / AQ;
+  const long long tiles = (long long)nq * H * B;
+  for (const auto& k : kConfigs) {
+    const size_t smem = attn_resident_smem_bytes<HD>(nch, k[0], k[1]);
+    if (smem > block_smem || k[2] * (smem + reserved) > sm_smem) continue;
+    const long long slots = (long long)sm_count() * k[2];
+    return {1, k[0], k[1], k[2], (int)(tiles < slots ? tiles : slots), smem};
+  }
+  return {0, 1, 0, 0, (int)tiles, attn_smem_bytes<HD>()};
+}
+
+// The largest N the resident kernel takes on an H100 (228 KB of shared
+// memory an SM, 227 KB a block, 1 KB reserved a block): 832 at hd 64.
+template <int HD>
+constexpr int attn_resident_max_n() {
+  int nch = 1;
+  while (attn_resident_smem_bytes<HD>(nch + 1, 2, 1) <= 232448) ++nch;
+  return nch * AK;
+}
+
 template <int HD>
 cudaError_t launch_attn(const bf16* qkv, bf16* att, int B, int N, int C, int H,
                         float scale, cudaStream_t stream) {
   if (N <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((N + AQ - 1) / AQ, H, B);
-  if (N <= ATTN_ONCHIP_MAX_N) {
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        attn_onchip_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)attn_onchip_smem_bytes<HD>(ATTN_ONCHIP_MAX_N / AK / ATTN_PARTS));
+  const AttnPlan p = attn_plan<HD>(B, N, H);
+  if (p.resident) {
+    static const cudaError_t attr = [] {
+      const cudaError_t e = cudaFuncSetAttribute(
+          attn_resident_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          device_attr<cudaDevAttrMaxSharedMemoryPerBlockOptin>());
+      if (e != cudaSuccess) return e;
+      return cudaFuncSetAttribute(attn_resident_kernel<HD>,
+                                  cudaFuncAttributePreferredSharedMemoryCarveout,
+                                  (int)cudaSharedmemCarveoutMaxShared);
+    }();
     if (attr != cudaSuccess) return attr;
-    const int hc = ((N + AK - 1) / AK + ATTN_PARTS - 1) / ATTN_PARTS;
     CUtensorMap map;
     const cudaError_t err = make_qkv_map<HD>(&map, qkv, B, N, C);
     if (err != cudaSuccess) return err;
-    const long long items = (long long)grid.x * H * B;
-    const int blocks = (int)(items < sm_count() ? items : sm_count());
-    attn_onchip_kernel<HD><<<blocks, ATTN_ONCHIP_THREADS, attn_onchip_smem_bytes<HD>(hc),
-                             stream>>>(map, att, B, N, C, H, scale);
+    const int nq = (N + AQ - 1) / AQ;
+    attn_resident_kernel<HD><<<p.blocks, 128 * p.wgs, p.smem, stream>>>(
+        map, att, N, C, H, nq * H * B, scale, p.qbuf);
     return cudaGetLastError();
   }
   static const cudaError_t attr = cudaFuncSetAttribute(
       attn_twopass_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)attn_smem_bytes<HD>());
   if (attr != cudaSuccess) return attr;
-  attn_twopass_kernel<HD><<<grid, ATTN_THREADS, attn_smem_bytes<HD>(), stream>>>(
-      qkv, att, N, C, scale);
+  attn_twopass_kernel<HD><<<dim3((N + AQ - 1) / AQ, H, B), ATTN_THREADS, attn_smem_bytes<HD>(),
+                            stream>>>(qkv, att, N, C, scale);
   return cudaGetLastError();
 }
 
-// The attention core for a head dim of 16, 32 or 64: on chip up to
-// ATTN_ONCHIP_MAX_N keys, two passes past it.
+// The attention core for a head dim of 16, 32 or 64: K and V resident in
+// shared memory up to attn_resident_max_n<HD>() keys, two passes past it.
 inline cudaError_t launch_attn_any(const bf16* qkv, bf16* att, int B, int N, int C,
                                    int H, float scale, cudaStream_t stream) {
   switch (C / H) {
@@ -797,6 +836,27 @@ inline cudaError_t launch_attn_any(const bf16* qkv, bf16* att, int B, int N, int
     case 32: return launch_attn<32>(qkv, att, B, N, C, H, scale, stream);
     case 64: return launch_attn<64>(qkv, att, B, N, C, H, scale, stream);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+// The plan launch_attn_any follows for these sizes (resident 0 and the
+// two-pass kernel's grid size in `blocks` past the limit; wgs 0 for a
+// head dim it does not take).
+inline AttnPlan attn_plan_any(int B, int N, int C, int H) {
+  switch (C / H) {
+    case 16: return attn_plan<16>(B, N, H);
+    case 32: return attn_plan<32>(B, N, H);
+    case 64: return attn_plan<64>(B, N, H);
+    default: return {0, 0, 0, 0, 0, 0};
+  }
+}
+
+inline int attn_resident_max_n_any(int hd) {
+  switch (hd) {
+    case 16: return attn_resident_max_n<16>();
+    case 32: return attn_resident_max_n<32>();
+    case 64: return attn_resident_max_n<64>();
+    default: return 0;
   }
 }
 

@@ -4,8 +4,11 @@
 //
 // B3 (attn_forward) replaces countr_tpu/ops/pallas_attn.py::_attn_kernel
 // (launched by _fused). It runs the attention core of attention.cuh
-// (launch_attn_any), the core of kernel B2, which computes exactly B3's
-// function: QK^T once per key block up to 640 keys, two passes past it.
+// (launch_attn_any), which kernel B2 runs too and which computes exactly
+// B3's function: each head's K and V resident in shared memory up to
+// attn_resident_max_n<HD>() keys (832 at hd 64), two passes over keys
+// streamed from device memory past it. That header says what bounds the
+// core and what its design does about it.
 //
 // B4 (attn_backward) replaces pallas_attn.py::_attn_bwd_kernel (launched
 // by _fused_bwd), B3's VJP: for each (batch, head), with s = q k^T * hd^-0.5
@@ -26,7 +29,7 @@
 // (13.7 us at 989 TFLOP/s), against 33 MB of q, k, v, dO read and dq, dk,
 // dv written (9.9 us at 3.35 TB/s). The design makes 7 products per pair
 // (2 in the statistics, 5 in the main pass) and runs at about 7x the
-// bound (scripts/profile_b4.py, PERF.md). The special-function unit does
+// bound (scripts/profile_torch_attn.py, PERF.md). The special-function unit does
 // not bound it (taking the exp2 out saves 2%). The main pass is bound by
 // the latency of each warpgroup's chain per step (products, then P and
 // dS, then products, then dQ for one query block in three), which three
@@ -71,14 +74,6 @@ constexpr int BWD_WG = 3;       // consumer warpgroups of the main pass, a key b
 constexpr int BWD_STAGES = 3;   // Q / dO / statistics ring
 constexpr int BWD_THREADS = 128 * BWD_WG + 32;  // + one producer warp
 constexpr int STAT_FLOATS = 2 * BT;  // m2 + log2 l, D of one query block
-
-// 2^x on the special function unit (ex2.approx, relative error about
-// 2^-22; results below 2^-126 flush to 0).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // ---- pass 1: row statistics (mma.sync) ----
 
@@ -609,6 +604,24 @@ int attn_forward(const void* qkv, void* att, int B, int N, int C, int H, float s
   return (int)launch_attn_any((const bf16*)qkv, (bf16*)att, B, N, C, H, scale,
                               reinterpret_cast<cudaStream_t>(stream));
 }
+
+// How attn_forward (and B2's attention step) runs for these sizes:
+// plan[0..5] = resident route (1) or two-pass (0), consumer warpgroups a
+// block, Q buffers a warpgroup, blocks resident an SM, blocks launched,
+// shared bytes a block. Returns cudaErrorInvalidValue for a head dim
+// the core does not take.
+int attn_core_plan(int B, int N, int C, int H, long long* plan) {
+  if (C % 8 != 0 || C % H != 0) return (int)cudaErrorInvalidValue;
+  const AttnPlan p = attn_plan_any(B, N, C, H);
+  if (p.wgs == 0) return (int)cudaErrorInvalidValue;
+  const long long v[6] = {p.resident, p.wgs, p.qbuf, p.per_sm, p.blocks, (long long)p.smem};
+  for (int i = 0; i < 6; ++i) plan[i] = v[i];
+  return 0;
+}
+
+// The largest N whose K and V the core holds in shared memory, for a
+// head dim of 16, 32 or 64 (0 otherwise).
+int attn_core_max_n(int hd) { return attn_resident_max_n_any(hd); }
 
 // The bytes of scratch attn_backward takes for these sizes.
 long long attn_backward_scratch_bytes(int B, int N, int C, int H) {

@@ -11,7 +11,8 @@
 //
 // What the design does about it: every product runs on wgmma, the
 // tensor-core instruction that reaches the card's full rate, with its
-// operands brought by TMA, and the attention computes QK^T once. Four
+// operands brought by TMA, and the attention reads each head's K and V
+// from device memory once per block that works on the head. Four
 // kernels run back to back on the caller's stream; the intermediates go
 // through scratch that the caller allocates (qkv [M, 3C] and att [M, C],
 // M = B*N):
@@ -23,14 +24,15 @@
 //      128 x 128 tiles and store each tile by TMA from shared memory.
 //      Wqkv is [3C, C] in torch's [out, in] layout: an "NT" product, both
 //      operands K-contiguous, as wgmma reads them.
-//   3. Attention (attention.cuh, the core B3 runs too): one block per
-//      (batch, head, 64-query tile). Up to N = 576 keys the scaled fp32
-//      logits are computed once (wgmma) and parked in shared memory
-//      (64 x 576 fp32 is 144 KB), so the exact row max is known before
-//      any p is formed without a second QK^T; then p = exp2(logit - max),
-//      s += p (fp32), acc += bf16(p) . V (wgmma, fp32), and
-//      bf16(acc / s). Past 576 keys the two-pass route recomputes QK^T.
-//      No N x N tensor reaches device memory.
+//   3. Attention (attention.cuh, the core B3 runs too): persistent
+//      blocks, each holding one head's K and V in shared memory at a
+//      time (brought once by TMA, up to 832 keys at hd 64), consumer
+//      warpgroups on their own 64-query tiles. Sweep 1 runs QK^T (wgmma)
+//      for the exact row max only; sweep 2 runs QK^T again, then
+//      p = exp2(logit - max), s += p (fp32), acc += bf16(p) . V (wgmma,
+//      fp32), and bf16(acc / s). Past the resident limit a two-pass
+//      route streams K and V from device memory. No N x N tensor
+//      reaches device memory.
 //   4. proj GEMM + bias + residual x, the GEMM of step 2 (the residual
 //      tile also by TMA).
 // The rounding points are the TPU kernel's (pallas_block.py:60-87): bf16

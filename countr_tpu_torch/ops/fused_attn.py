@@ -13,9 +13,11 @@ decoder's [8, 576, 512] 5.4 GFLOP and 18.9 MB, 5.5 and 5.6 us); B4 is
 bound by operations (10·B·N²·C FLOP, 13.6 GFLOP there, 13.7 us, against
 33 MB). What the design does about it: no N x N tensor in memory, and
 blocks of (batch, head, 64 rows) for 132 SMs. B3 runs the attention core
-it shares with B2 (``csrc/attention.cuh``): up to 576 keys, QK^T once by
-wgmma with Q, K and V brought by TMA and the fp32 logits parked in
-shared memory, two ``mma.sync`` passes past that. B4 runs two passes:
+it shares with B2 (``csrc/attention.cuh``): up to ``resident_max_n``
+keys (832 at head dim 64) each block holds its head's K and V in shared
+memory, brought once by TMA, and runs QK^T twice by wgmma (the exact row
+max, then p and PV) with no logits kept; two ``mma.sync`` passes over
+keys streamed from device memory past that. B4 runs two passes:
 the row statistics in one online sweep (``mma.sync``), then one wgmma +
 TMA pass per (batch, head) that forms P and dS once per (query, key) pair
 for dV, dK and dQ; each block owns its outputs, so no atomics and the
@@ -99,6 +101,10 @@ def _lib():
         lib.attn_backward.restype = ci
         lib.attn_backward_scratch_bytes.argtypes = [ci] * 4
         lib.attn_backward_scratch_bytes.restype = ctypes.c_longlong
+        lib.attn_core_plan.argtypes = [ci] * 4 + [vp]
+        lib.attn_core_plan.restype = ci
+        lib.attn_core_max_n.argtypes = [ci]
+        lib.attn_core_max_n.restype = ci
         lib.attn_error_string.argtypes = [ci]
         lib.attn_error_string.restype = ctypes.c_char_p
         lib._countr_bound = True
@@ -109,6 +115,31 @@ def build() -> dict:
     """Build and load the kernel library; returns the build record
     (path, seconds, nvcc log)."""
     return _lib()[1]
+
+
+CORE_PLAN_KEYS = ("resident", "warpgroups", "q_buffers", "blocks_per_sm", "blocks",
+                  "smem_bytes")
+
+
+def core_plan(b: int, n: int, c: int, num_heads: int) -> dict:
+    """How the attention core (B3, and B2's attention step) runs on the
+    current card for these sizes: ``resident`` 1 (K and V in shared
+    memory) or 0 (the two-pass kernel past the limit), consumer
+    warpgroups a block, Q buffers a warpgroup, blocks resident on an SM,
+    blocks launched and shared bytes a block. Builds the library."""
+    lib, _ = _lib()
+    out = (ctypes.c_longlong * len(CORE_PLAN_KEYS))()
+    code = lib.attn_core_plan(b, n, c, num_heads, ctypes.addressof(out))
+    if code:
+        raise ValueError(f"fused_attention: no plan for C={c} with {num_heads} heads "
+                         f"({lib.attn_error_string(code).decode()})")
+    return dict(zip(CORE_PLAN_KEYS, out))
+
+
+def resident_max_n(hd: int) -> int:
+    """The largest N whose K and V the attention core holds in shared
+    memory at head dim ``hd`` (16, 32 or 64). Builds the library."""
+    return _lib()[0].attn_core_max_n(hd)
 
 
 def _check(name: str, t: torch.Tensor, shape) -> None:

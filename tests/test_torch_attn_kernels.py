@@ -32,6 +32,17 @@ dominates each row. Limits: fp32 max|d| <= 1e-5·max(1, max|ref|)
 (observed 6.6e-7; 3.0e-5 at x8, where dk reaches 19.8); bf16 one bf16
 ulp of the largest reference value and not below 3.9e-3, the card
 tests' limit (observed 9.8e-4; 3.1e-2 at x8, a quarter of dk's ulp).
+
+``test_b3_kernel_arithmetic_matches_pallas`` does the same for B3, the
+attention core of csrc/attention.cuh, against ``_fused``: the exact row
+max of the raw products then scaled, p = exp2 of the scaled logit less
+the max, the row sum taken in the kernel's order (each of a row's four
+threads over its keys 64c + 8j + 2t + {0, 1}, chunk by chunk, the four
+partial sums merged pairwise), and PV added into one fp32 accumulator a
+64-key chunk at a time. Head dims 16, 32 and 64, N not a multiple of 64,
+N = 650 past the 576 keys of the core it replaced, logits scaled x8.
+Same limits (observed fp32 8.6e-7, 9.0e-6 at x8 where outputs reach
+4.2; bf16 9.8e-4, 7.8e-3 at x8 against an ulp of 3.1e-2).
 """
 
 import jax
@@ -176,6 +187,66 @@ def test_b4_kernel_arithmetic_matches_pallas(b, n, c, h, logit_scale, dtype):
             assert d <= 1e-5 * max(1.0, top), (d, top)
         else:
             assert d <= max(3.9e-3, 2.0 ** (np.floor(np.log2(top)) - 7)), (d, top)
+
+
+def _kernel_fwd_model(q, k, v, num_heads, dtype):
+    """B3 as the attention core of csrc/attention.cuh computes it, for
+    float32 numpy [B, N, C] inputs already in the working dtype: the
+    output as a float32 array rounded to ``dtype``. The products are
+    float32 matmuls (the tensor cores' own order of sums is not
+    modelled); p rounds to ``dtype`` before PV, as on the card in bf16."""
+    f32 = np.float32
+    rnd = (lambda x: np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))) \
+        if dtype == "bf16" else (lambda x: x.astype(f32))
+    b, n, c = q.shape
+    hd = c // num_heads
+    qh, kh, vh = (x.reshape(b, n, num_heads, hd).transpose(0, 2, 1, 3) for x in (q, k, v))
+    scale = f32(f32(hd ** -0.5) * LOG2E)
+    s = (qh @ kh.transpose(0, 1, 3, 2)).astype(f32)
+    # Sweep 1: the exact max of the raw products, merged per chunk and
+    # over a row's four threads, then scaled (scaling keeps the order).
+    m = (s.max(-1) * scale).astype(f32)
+    # Sweep 2: p = exp2(fl(s * scale) - max), keys past N give 0.
+    nch = -(-n // 64)
+    p = np.zeros(s.shape[:-1] + (nch * 64,), f32)
+    p[..., :n] = np.exp2(((s * scale).astype(f32) - m[..., None]).astype(f32)).astype(f32)
+    # Row sums in the kernel's order: thread t of a row's four adds keys
+    # 64c + 8j + 2t + e for chunk c, then j, then the pair e; the four
+    # partial sums meet as (s0 + s1) + (s2 + s3).
+    order = np.arange(nch * 64).reshape(nch, 8, 4, 2).transpose(2, 0, 1, 3).reshape(4, -1)
+    part = np.zeros(p.shape[:-1] + (4,), f32)
+    for i in range(order.shape[1]):
+        part = (part + p[..., order[:, i]]).astype(f32)
+    srow = (part[..., 0] + part[..., 1]) + (part[..., 2] + part[..., 3])
+    # PV: one fp32 accumulator, a 64-key chunk at a time.
+    o = np.zeros(qh.shape, f32)
+    pr = rnd(p[..., :n])
+    for c0 in range(0, n, 64):
+        o = (o + pr[..., c0:c0 + 64] @ vh[..., c0:c0 + 64, :]).astype(f32)
+    out = (o / srow[..., None]).astype(f32)
+    return rnd(out.transpose(0, 2, 1, 3).reshape(b, n, c))
+
+
+# (b, n, c, heads, logit scale): head dims 16, 32 and 64, N not a multiple
+# of 64 and N past 576, logits scaled x8
+B3_KERNEL_SHAPES = [(2, 100, 64, 4, 1.0), (1, 150, 96, 3, 1.0), (1, 650, 128, 2, 1.0),
+                    (2, 100, 64, 2, 8.0), (1, 200, 128, 2, 8.0)]
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("b,n,c,h,logit_scale", B3_KERNEL_SHAPES,
+                         ids=["hd16-n100", "hd32-n150", "hd64-n650", "hd32-n100-x8",
+                              "hd64-n200-x8"])
+def test_b3_kernel_arithmetic_matches_pallas(b, n, c, h, logit_scale, dtype):
+    (qj, kj, vj), _ = _inputs((b, n, c), dtype, k=3, seed=3)
+    qj = (qj.astype(jnp.float32) * logit_scale).astype(qj.dtype)  # exact: a power of 2
+    want = _np(_fused(qj, kj, vj, h, True))
+    got = _kernel_fwd_model(*(_np(x) for x in (qj, kj, vj)), h, dtype)
+    d, top = np.abs(got - want).max(), np.abs(want).max()
+    if dtype == "fp32":
+        assert d <= 1e-5 * max(1.0, top), (d, top)
+    else:
+        assert d <= max(3.9e-3, 2.0 ** (np.floor(np.log2(top)) - 7)), (d, top)
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])

@@ -19,10 +19,11 @@ bit for bit. The shared GEMM (ops/gemm.py) at every product of the
 paths and at ragged M, N and K: max|d| <= 2^-5 * max(1, max|ref|), the
 limit of B5 and B6, whose products it runs (kernel and plain version
 round at the same points and sum in another order). B2 and B3 also at
-N = 1 (the attention core's on-chip route, which holds up to 576 keys)
-and N = 577 and 641 (its two-pass route). B3 and B4 also on logits
-scaled x8 (one key dominates each row) at the same limit, and B4 gives
-the same bits on two calls.
+N = 1, 577 and 641, where the attention core holds K and V in shared
+memory, and B3 at N = 832 and 833 at head dim 64, the last N it holds
+and the first past it (the two-pass route). B3 and B4 also on logits
+scaled x8 (one key dominates each row) at the same limit, and B3 and B4
+give the same bits on two calls.
 """
 
 import numpy as np
@@ -30,8 +31,8 @@ import pytest
 import torch
 
 from countr_tpu_torch.ops.fused_attn import (
-    attention_bwd_plain, attention_exp2, fused_attention, fused_attention_bwd,
-    fused_attention_qkv,
+    attention_bwd_plain, attention_exp2, core_plan, fused_attention, fused_attention_bwd,
+    fused_attention_qkv, resident_max_n,
 )
 from countr_tpu_torch.ops.fused_block import attention_block_plain, fused_attention_block
 from countr_tpu_torch.ops.fused_cross import cross_block_plain, fused_cross_attention_block
@@ -116,14 +117,17 @@ def _ulp_limit(ref) -> float:
 
 
 ATTN_SHAPES = [(8, 576, 512, 16), (8, 576, 768, 12), (16, 288, 768, 12), (16, 576, 512, 16),
-               (2, 37, 96, 3), (3, 100, 128, 2), (2, 70, 48, 3), (2, 577, 128, 2), (3, 1, 96, 3),
-               (1, 641, 64, 4)]
+               (16, 576, 768, 12), (2, 37, 96, 3), (3, 100, 128, 2), (2, 70, 48, 3),
+               (2, 577, 128, 2), (3, 1, 96, 3), (1, 641, 64, 4)]
+# Head dim 64 at the attention core's resident limit and just past it.
+RESIDENT_LIMIT_SHAPES = [(1, 832, 128, 2), (1, 833, 128, 2)]
 # Logits scaled x8 (q times 8): one key dominates each row, so B4's online
 # row statistics rescale their sums as the max grows; every head dim.
 ATTN_X8_SHAPES = [(8, 576, 512, 16), (2, 100, 128, 2), (2, 70, 48, 3), (1, 641, 64, 4)]
 
 
 @pytest.mark.parametrize("b,n,c,h,logit_scale", [s + (1.0,) for s in ATTN_SHAPES]
+                         + [s + (1.0,) for s in RESIDENT_LIMIT_SHAPES]
                          + [s + (8.0,) for s in ATTN_X8_SHAPES])
 def test_fused_attention_matches_plain(cuda_device, b, n, c, h, logit_scale):
     rng = np.random.default_rng(2)
@@ -143,6 +147,30 @@ def test_fused_attention_matches_plain(cuda_device, b, n, c, h, logit_scale):
     assert bool(torch.isfinite(got.float()).all() and torch.isfinite(dgot.float()).all())
     assert float((got.float() - want.float()).abs().max()) <= _ulp_limit(want)
     assert float((dgot.float() - dwant.float()).abs().max()) <= _ulp_limit(dwant)
+
+
+def test_attention_core_routes(cuda_device):
+    """The resident route takes every N up to its limit (832 keys at head
+    dim 64) and the two-pass route the N past it; the card tests' shapes
+    at and past the limit run one each."""
+    assert resident_max_n(64) == 832
+    assert [core_plan(*s)["resident"] for s in RESIDENT_LIMIT_SHAPES] == [1, 0]
+    for b, n, c, h in ATTN_SHAPES:
+        plan = core_plan(b, n, c, h)
+        assert plan["resident"] == 1 and plan["blocks"] >= 1, (b, n, c, h, plan)
+
+
+@pytest.mark.parametrize("b,n,c,h", [(8, 576, 512, 16), (16, 576, 768, 12), (2, 577, 128, 2),
+                                     (1, 833, 128, 2)])
+def test_fused_attention_is_deterministic(cuda_device, b, n, c, h):
+    """B3 gives the same bits on two calls with the same inputs (each
+    query row's sums are taken in a fixed order by one warpgroup)."""
+    rng = np.random.default_rng(14)
+    qkv = _t(rng, (b, n, 3 * c), cuda_device, dtype=torch.bfloat16)
+    with torch.no_grad():
+        first = fused_attention_qkv(qkv, h)
+        torch.cuda.synchronize()
+        assert torch.equal(fused_attention_qkv(qkv, h), first)
 
 
 @pytest.mark.parametrize("b,n,c,h", [(8, 576, 512, 16), (16, 288, 768, 12), (2, 577, 128, 2)])
