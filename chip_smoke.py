@@ -37,7 +37,23 @@ Phases, one line each on stdout:
      images (three plain widths, one in 3x3 grid mode), with the launch
      counters set to 0 just before and read just after: each window
      batch must launch B1 26 times and B2 18 times;
-  6. train: full-width mae_vit_base6_patch16 in the bf16 training build
+  6. graphed_forward: the same model's window forward replayed from its
+     CUDA graph (engine/graphs.py, through CountingEngine's pipeline)
+     against the eager forward at 16 windows — the same bits on two
+     inputs, and after a weight change (load_state_dict) the new eager
+     output's bits — and graphed and eager windows/s (CUDA events);
+  7. count_batch: CountingEngine.count_batch, the main counting path, on
+     19 synthetic images (plain, 3x3 grid mode and narrow), with the
+     counters and the graph runner's counts set to 0 just before and read
+     just after: no eager launch, and B1 26 and B2 18 per window batch
+     (graph replay); count on each image beside it (equal grid_mode and
+     n_windows, counts within COUNT_BATCH_REL_TOL); a torch.profiler pass
+     of count_batch and one of count over the same images (device busy
+     and idle share);
+  8. bench: the JSON line of countr_tpu_torch.bench (few-shot) on the
+     same engine: images/s of count_batch (min / median / max of 8
+     passes), graphed, eager and pipeline windows/s;
+  9. train: full-width mae_vit_base6_patch16 in the bf16 training build
      (B1, B3/B4, B2 off, encoder frozen), random weights from seed 0,
      batch 8 of synthetic images, densities and exemplar crops — one
      step's loss and gradients against the same step with every kernel
@@ -47,7 +63,7 @@ Phases, one line each on stdout:
      (B1 44, B3 18, B4 6 and B2 0 per step), ms per step and images/s;
      a torch.profiler pass over two steps (the device's idle share); one
      step with the encoder unfrozen (B4 18);
-  7. pretrain: full-width mae_vit_base_patch16 (12x768 encoder on the
+  10. pretrain: full-width mae_vit_base_patch16 (12x768 encoder on the
      288 visible tokens, 8x512 decoder), bf16, batch 16, mask ratio 0.5,
      random weights from seed 0, for both builds — the pretrain CLI's (B1,
      B3/B4, B2 off) and the config's default (B2, its backward through
@@ -67,7 +83,6 @@ from __future__ import annotations
 import contextlib
 import itertools
 import json
-import subprocess
 import sys
 import time
 
@@ -109,13 +124,6 @@ PRETRAIN_LR = 1.5e-4 * PRETRAIN_BATCH / 256
 
 def say(phase: str, **kv) -> None:
     print(json.dumps({"phase": phase, **kv}), flush=True)
-
-
-def smi_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
 
 
 def time_ms(torch, fn, arg_sets, iters: int = 30, warmup: int = 3) -> float:
@@ -800,6 +808,165 @@ def count_phase(torch, model):
     return launches
 
 
+# count_batch against count on the same images: each count is a sum over
+# ~150k density values of a bf16 forward. The two paths differ in the
+# window batches' neighbours and sizes (count pads each image's windows to
+# 16, count_batch packs windows of several images into 16 and tails of 4
+# or 8, so cuBLAS may pick other GEMM kernels) and in the stitch (float64
+# on the host against float32 on the card). Each density value may move by
+# bf16 rounding (the forward's own limit is 2.2e-2·max(1, |ref|)), but a
+# count averages those moves over the whole map: 1e-2 of it.
+COUNT_BATCH_REL_TOL = 1e-2
+# count_batch's images: plain FSC147-like widths, three more in 3x3 grid
+# mode (exemplars under 10 px), two narrower than a window (one of them in
+# grid mode). They pack into two sets of 76 and 49 windows, so the forward
+# runs at two buckets: 16 windows, and a tail of 4.
+COUNT_BATCH_CASES = (
+    [(w, (60, 70, 80)) for w in (384, 448, 512, 512, 576, 640, 688, 768, 1152, 464, 576, 512)]
+    + [(w, (6, 7, 8)) for w in (512, 768, 464)] + [(300, (40, 50, 60)), (368, (6, 7, 8))]
+    + [(w, (60, 70, 80)) for w in (1024, 416)])
+
+
+def graph_phase(torch, engine):
+    """The window forward replayed from its CUDA graph against the eager
+    forward at 16 windows: the same bits on two inputs; graphed and eager
+    windows/s (CUDA events, inputs copied into the graph's buffers as
+    count_batch does); then a weight change (load_state_dict), after
+    which the replay must give the new eager output's bits."""
+    from countr_tpu_torch.bench import events_ms
+
+    model, graphed = engine.model, engine._pipeline.forward
+    rng = np.random.default_rng(13)
+
+    def inputs():
+        imgs = rng.uniform(0, 1, (WINDOWS, 384, 384, 3)).astype(np.float32)
+        boxes = rng.uniform(0, 1, (1, 3, 64, 64, 3)).astype(np.float32)
+        with torch.inference_mode():
+            y = model.encode_exemplars(torch.from_numpy(boxes).to(engine.device, torch.bfloat16), 3)
+        return torch.from_numpy(imgs).to(engine.device), y.expand(WINDOWS, 3, -1).contiguous()
+
+    def same_bits(imgs, y, what):
+        with torch.inference_mode():
+            want = model.forward_tokens(imgs, y)
+            got = graphed(imgs, y).clone()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"graphed forward ({what}) differs from the eager one: "
+                                 f"max|d| {max_abs(got, want)}")
+        return want
+
+    sets = [inputs() for _ in range(2)]
+    t0 = time.perf_counter()
+    for imgs, y in sets:
+        same_bits(imgs, y, "first capture")
+    capture_s = time.perf_counter() - t0
+    imgs, y = sets[0]
+    graphed.runner.zero_counts()
+    with torch.inference_mode():
+        g_ms = events_ms(lambda: graphed(imgs, y), iters=10)
+        e_ms = events_ms(lambda: model.forward_tokens(imgs, y), iters=10)
+    replays = graphed.runner.replays
+    per_replay = {k: v / replays for k, v in graphed.runner.launched.items()}
+    if per_replay != {"B1": 26, "B2": 18, "B3": 0, "B4": 0, "B5": 0, "B6": 0}:
+        raise AssertionError(f"graphed forward: launches per replay {per_replay}")
+
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    old = same_bits(imgs, y, "before the weight change")
+    changed = dict(saved)
+    for k in ("blocks.0.attn.qkv.weight", "decoder_blocks.0.norm0.weight", "decode_head3.3.weight"):
+        changed[k] = saved[k] * 1.25
+    model.load_state_dict(changed)
+    new = same_bits(imgs, y, "after load_state_dict")
+    if torch.equal(new, old):
+        raise AssertionError("the weight change did not change the forward's output")
+    model.load_state_dict(saved)
+    same_bits(imgs, y, "after the weights were restored")
+    say("graphed_forward", windows=WINDOWS, bitwise_equal_to_eager=True, inputs_checked=len(sets),
+        first_captures_s=capture_s, graphed_ms=g_ms, eager_ms=e_ms,
+        graphed_windows_per_s=WINDOWS / g_ms * 1e3, eager_windows_per_s=WINDOWS / e_ms * 1e3,
+        launches_per_replay=per_replay, replays=replays,
+        weight_change="recaptured; the replay equals the new eager output bitwise")
+
+
+def count_batch_phase(torch, engine):
+    """CountingEngine.count_batch on the images of COUNT_BATCH_CASES
+    (synthetic_image, uint8) through the graphed forward, with the launch
+    counters and the graph runner's counts set to 0 just before and read
+    just after: no wrapper may launch eagerly, and each window batch (one
+    graph replay) must launch B1 26 times and B2 18 times. Then count on
+    each image: equal grid_mode and n_windows, counts within
+    COUNT_BATCH_REL_TOL. Then profile_run of count_batch and of count over
+    the same images."""
+    from countr_tpu_torch.engine.device_pipeline import chunk_plan
+
+    rng = np.random.default_rng(14)
+    cases = [synthetic_image(rng, w, sizes) for w, sizes in COUNT_BATCH_CASES]
+    images, boxes, rects = (list(x) for x in zip(*cases))
+    runner = engine._pipeline.forward.runner
+
+    def batch():
+        return engine.count_batch(images, boxes, rects, 3, return_density=False)
+
+    batch()  # captures the graphs of this batch's buckets
+    torch.cuda.synchronize()
+    reset_counts()
+    runner.zero_counts()
+    t0 = time.perf_counter()
+    results = batch()
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    eager = launch_counts()
+    graphed, replays = dict(runner.launched), runner.replays
+    sets = engine.plan_batch_sets(images, rects)
+    expect_replays = sum(
+        len(chunk_plan(sum(engine.windows_per_image(images[i].shape[1], rects[i])[1]
+                           for i in idxs), engine.batch_windows)) for idxs in sets)
+    want = {"B1": 26 * replays, "B2": 18 * replays, "B3": 0, "B4": 0, "B5": 0, "B6": 0}
+    if any(eager.values()) or graphed != want or replays != expect_replays or replays == 0:
+        raise AssertionError(f"count_batch: eager launches {eager}, graph launches {graphed} "
+                             f"over {replays} replays (expected {expect_replays})")
+
+    t0 = time.perf_counter()
+    singles = [engine.count(img, bx, rc) for img, bx, rc in zip(images, boxes, rects)]
+    count_ms = (time.perf_counter() - t0) * 1e3
+    worst = 0.0
+    for i, (b, c) in enumerate(zip(results, singles)):
+        if b.grid_mode != c.grid_mode or b.n_windows != c.n_windows:
+            raise AssertionError(f"count_batch image {i}: grid {b.grid_mode}/{c.grid_mode}, "
+                                 f"windows {b.n_windows}/{c.n_windows}")
+        for field in ("count", "raw_count", "e_cnt"):
+            x, r = getattr(b, field), getattr(c, field)
+            if not np.isfinite(x):
+                raise AssertionError(f"count_batch image {i}: {field} {x}")
+            rel = abs(x - r) / max(abs(r), 1e-6)
+            worst = max(worst, rel)
+            if not rel <= COUNT_BATCH_REL_TOL:
+                raise AssertionError(f"count_batch image {i}: {field} {x} against count's {r} "
+                                     f"(rel {rel} > {COUNT_BATCH_REL_TOL})")
+    n_windows = sum(r.n_windows for r in results)
+    say("count_batch", images=len(images), grid_images=sum(r.grid_mode for r in results),
+        narrow_images=sum(img.shape[1] < 384 for img in images), sets=len(sets),
+        windows=n_windows, window_batches=replays, ms=batch_ms,
+        images_per_s=len(images) / batch_ms * 1e3, windows_per_s=n_windows / batch_ms * 1e3,
+        count_ms=count_ms, count_images_per_s=len(images) / count_ms * 1e3,
+        max_rel_diff_vs_count=worst, rel_limit=COUNT_BATCH_REL_TOL,
+        graph_launches=graphed, eager_launches=eager, graphs_captured=len(runner))
+    say("profile", path="count_batch", images=len(images),
+        **profile_run(torch, batch, 2))
+    say("profile", path="count (eager, per image)", images=len(images),
+        **profile_run(torch, lambda: [engine.count(img, bx, rc) for img, bx, rc
+                                      in zip(images, boxes, rects)], 1))
+    return graphed
+
+
+def bench_phase(engine):
+    """countr_tpu_torch.bench's measurement on this engine: its JSON line."""
+    from countr_tpu_torch import bench
+
+    line = bench.run("few_shot", engine=engine)
+    print(json.dumps({"phase": "bench", **line}), flush=True)
+    return line
+
+
 def train_batch(rng, b: int):
     """A synthetic finetune batch of numpy arrays: [b, 384, 384, 3] images
     of bright blobs on noise in [0, 1], their densities (a unit dot at
@@ -830,27 +997,15 @@ def train_batch(rng, b: int):
 
 
 def launch_counts():
-    from countr_tpu_torch.ops.fused_attn import fused_attention
-    from countr_tpu_torch.ops.fused_block import fused_attention_block
-    from countr_tpu_torch.ops.fused_cross import fused_cross_attention_block
-    from countr_tpu_torch.ops.fused_ln import fused_layer_norm
-    from countr_tpu_torch.ops.fused_mlp import fused_mlp_block
+    from countr_tpu_torch.ops.launches import launch_counts as counts
 
-    return {"B1": fused_layer_norm.launches, "B2": fused_attention_block.launches,
-            "B3": fused_attention.launches, "B4": fused_attention.bwd_launches,
-            "B5": fused_mlp_block.launches, "B6": fused_cross_attention_block.launches}
+    return counts()
 
 
 def reset_counts():
-    from countr_tpu_torch.ops.fused_attn import fused_attention
-    from countr_tpu_torch.ops.fused_block import fused_attention_block
-    from countr_tpu_torch.ops.fused_cross import fused_cross_attention_block
-    from countr_tpu_torch.ops.fused_ln import fused_layer_norm
-    from countr_tpu_torch.ops.fused_mlp import fused_mlp_block
+    from countr_tpu_torch.ops.launches import reset_launch_counts
 
-    fused_layer_norm.launches = fused_attention_block.launches = 0
-    fused_attention.launches = fused_attention.bwd_launches = 0
-    fused_mlp_block.launches = fused_cross_attention_block.launches = 0
+    reset_launch_counts()
 
 
 def train_phase(torch, dev):
@@ -1067,7 +1222,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    from countr_tpu_torch.bench import smi_line
     from countr_tpu_torch.config import fast_mode_overrides
+    from countr_tpu_torch.engine.inference import CountingEngine
     from countr_tpu_torch.models import build_countr
 
     dev = torch.device("cuda")
@@ -1093,7 +1250,11 @@ def main() -> int:
     forward_phase(torch, dev, model)
     profile_phase(torch, dev, model)
     by_path = {"ab": ab, "count": count_phase(torch, model)}
-    del model
+    engine = CountingEngine(model, batch_windows=WINDOWS)
+    graph_phase(torch, engine)
+    by_path["count_batch"] = count_batch_phase(torch, engine)
+    bench_phase(engine)
+    del model, engine
     torch.cuda.empty_cache()
     by_path["train"] = train_phase(torch, dev)
     by_path["pretrain"] = pretrain_phase(torch, dev, fused=False)
@@ -1117,9 +1278,9 @@ def main() -> int:
     bwd = block_bwd_shapes[0]
     print(json.dumps({"kernels": [
         entry("B1 fused_layer_norm", "triton", "countr_tpu_torch/ops/fused_ln.py",
-              "countr_tpu/ops/pallas_ln.py:30", "count", ln_shapes, redesigned_in=1),
+              "countr_tpu/ops/pallas_ln.py:30", "count_batch", ln_shapes, redesigned_in=1),
         entry("B2 fused_attention_block", "cuda", "countr_tpu_torch/csrc/attn_block.cu",
-              "countr_tpu/ops/pallas_block.py:41", "count", block_shapes, redesigned_in=4,
+              "countr_tpu/ops/pallas_block.py:41", "count_batch", block_shapes, redesigned_in=4,
               backward=dict(replaces="countr_tpu/ops/pallas_block.py:164", path="pretrain_b2_on",
                             runs="B3 and B4 (countr_tpu_torch/csrc/attn.cu) and torch.matmul",
                             ms=bwd["ms"], fwd_bwd_ms=bwd["fwd_bwd_ms"],

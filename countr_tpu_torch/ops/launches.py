@@ -1,0 +1,41 @@
+"""The kernel wrappers' launch counters, read and set together.
+
+Each wrapper adds one to its counter where it launches its kernel
+(``fused_layer_norm.launches`` for B1, ``fused_attention_block.launches``
+for B2, ``fused_attention.launches`` and ``.bwd_launches`` for B3 and B4,
+``fused_mlp_block.launches`` for B5, ``fused_cross_attention_block
+.launches`` for B6). A CUDA graph's replay runs no wrapper: the graph
+runner (engine/graphs.py) keeps its own counts.
+"""
+
+from __future__ import annotations
+
+KERNELS = ("B1", "B2", "B3", "B4", "B5", "B6")
+
+
+def _counters():
+    from countr_tpu_torch.ops.fused_attn import fused_attention
+    from countr_tpu_torch.ops.fused_block import fused_attention_block
+    from countr_tpu_torch.ops.fused_cross import fused_cross_attention_block
+    from countr_tpu_torch.ops.fused_ln import fused_layer_norm
+    from countr_tpu_torch.ops.fused_mlp import fused_mlp_block
+
+    return {"B1": (fused_layer_norm, "launches"), "B2": (fused_attention_block, "launches"),
+            "B3": (fused_attention, "launches"), "B4": (fused_attention, "bwd_launches"),
+            "B5": (fused_mlp_block, "launches"),
+            "B6": (fused_cross_attention_block, "launches")}
+
+
+def launch_counts() -> dict:
+    """{kernel id: the wrapper's launch count}."""
+    return {k: getattr(fn, attr) for k, (fn, attr) in _counters().items()}
+
+
+def set_launch_counts(counts: dict) -> None:
+    """Set every wrapper's counter to ``counts[kernel id]``."""
+    for k, (fn, attr) in _counters().items():
+        setattr(fn, attr, counts[k])
+
+
+def reset_launch_counts() -> None:
+    set_launch_counts(dict.fromkeys(KERNELS, 0))

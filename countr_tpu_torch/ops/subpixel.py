@@ -21,6 +21,7 @@ import functools
 import numpy as np
 import torch
 
+from countr_tpu_torch.ops import device_constant
 from countr_tpu_torch.ops.conv import conv2d_nhwc
 from countr_tpu_torch.ops.upsample import _up2x_matrix, up2x_matrix
 
@@ -42,7 +43,7 @@ def _tap_tensor() -> np.ndarray:
 def compose_phase_kernel(weight: torch.Tensor) -> torch.Tensor:
     """[Cout, Cin, 3, 3] OIHW kernel -> [4*Cout, Cin, 3, 3] composite
     phase kernel, output channels ordered (p, q, cout), built in fp32."""
-    T = torch.from_numpy(_tap_tensor()).to(weight.device)
+    T = device_constant(_tap_tensor, (), weight.device, torch.float32)
     kp = torch.einsum("pta,qsb,oits->pqoiab", T, T, weight.float())
     _, _, co, ci, _, _ = kp.shape
     return kp.reshape(4 * co, ci, 3, 3)
@@ -157,7 +158,7 @@ def gn_phase_apply(v, mean, rstd, scale, bias, c_real: int = 256):
     """Normalize + affine with precomputed per-(N, group) stats on a FLAT
     layout [N, ..., C_last] (the big phase tensor or a strip)."""
     n, c_last = v.shape[0], v.shape[-1]
-    gm = torch.from_numpy(_group_map(c_last, c_real, mean.shape[1])).to(v.device)
+    gm = device_constant(_group_map, (c_last, c_real, mean.shape[1]), v.device, torch.int64)
     shape = (n,) + (1,) * (v.dim() - 2) + (c_last,)
     mean_c = mean[:, gm].reshape(shape)
     rstd_c = rstd[:, gm].reshape(shape)
@@ -197,7 +198,7 @@ def upsample2x_phase(z: torch.Tensor) -> torch.Tensor:
     [N, h, w, 2, 2] -> [N, 4h, 4w]; the [2h, 4h] band matrix's input
     axis is reindexed (i, p) -> 2i+p."""
     _, h, w, _, _ = z.shape
-    ur = torch.from_numpy(_up2x_matrix(2 * h)).to(z.device, z.dtype).reshape(h, 2, 4 * h)
-    uc = torch.from_numpy(_up2x_matrix(2 * w)).to(z.device, z.dtype).reshape(w, 2, 4 * w)
+    ur = device_constant(_up2x_matrix, (2 * h,), z.device, z.dtype).reshape(h, 2, 4 * h)
+    uc = device_constant(_up2x_matrix, (2 * w,), z.device, z.dtype).reshape(w, 2, 4 * w)
     out = torch.einsum("nijpq,ipH->njqH", z, ur)
     return torch.einsum("njqH,jqW->nHW", out, uc)

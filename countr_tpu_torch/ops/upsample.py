@@ -14,6 +14,8 @@ import functools
 import numpy as np
 import torch
 
+from countr_tpu_torch.ops import device_constant
+
 
 @functools.lru_cache(maxsize=None)
 def _up2x_matrix(n: int) -> np.ndarray:
@@ -35,8 +37,9 @@ def _up2x_matrix(n: int) -> np.ndarray:
 
 
 def up2x_matrix(n: int, like: torch.Tensor) -> torch.Tensor:
-    """``_up2x_matrix(n)`` as a tensor of ``like``'s dtype and device."""
-    return torch.from_numpy(_up2x_matrix(n)).to(like.device, like.dtype)
+    """``_up2x_matrix(n)`` as a tensor of ``like``'s dtype and device,
+    made once per (n, device, dtype)."""
+    return device_constant(_up2x_matrix, (n,), like.device, like.dtype)
 
 
 def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:
