@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 Phases, one line each on stdout:
-  1. environment: the card and its power limit;
+  1. environment: the card and its power limit, and which image decoders
+     import (torchvision, torchvision.io with a JPEG decoded on the CPU
+     and on the card, PIL, cv2);
   2. build: the CUDA libraries from countr_tpu_torch/csrc (nvcc, sm_90a;
      attn_block.cu for B2, attn.cu for B3/B4, mlp_block.cu for B5 and
      cross_block.cu for B6, one nvcc each, started together) and the
@@ -59,20 +61,37 @@ Phases, one line each on stdout:
      step's loss and gradients against the same step with every kernel
      swapped for its plain version; 8 finetune steps (shots 3, 2, 1, 0
      twice) on one repeated batch and loss mask at a constant learning
-     rate, with the counters set to 0 just before and read just after
-     (B1 44, B3 18, B4 6 and B2 0 per step), ms per step and images/s;
-     a torch.profiler pass over two steps (the device's idle share); one
-     step with the encoder unfrozen (B4 18);
-  10. pretrain: full-width mae_vit_base_patch16 (12x768 encoder on the
+     rate, replayed from the CUDA graphs of the four shots (captured
+     first; engine/train.py on engine/graphs.py), with the counters and
+     the graph runner's counts set to 0 just before and read just after
+     (no eager launch; B1 44, B3 18, B4 6, B2 0 per replay), against the
+     same 8 steps run eagerly on a twin built from the same seed (B1 44,
+     B3 18, B4 6 per step): step 1's loss to the bit, every loss, weight
+     and Adam tensor within GRAPHED_TOL; graphed and eager ms per step
+     and images/s, device memory (the graphs' pool, the eager step's
+     peak above the weights), a torch.profiler pass of each (the
+     device's idle share); the eval step replayed from its graph against
+     eager eval before and after the 8 steps (B1 44, B3 18, B4 0 per
+     replay); one graphed step with the encoder unfrozen (B4 18);
+  10. accum: the same build at accum_iter 2, 4 mini-steps (shots 3, 3,
+     1, 1) replayed from the accumulate and update graphs against the
+     eager mini-steps from the same start; the weights keep their bits on
+     the mini-steps that accumulate;
+  11. checkpoint: 4 graphed steps from seed 0, save_checkpoint, a fresh
+     state from seed 1 with its graphs captured, restore_checkpoint in
+     place (no live tensor replaced, no graph captured again), 4 more
+     graphed steps: the losses and weights of the train phase's 8;
+  12. pretrain: full-width mae_vit_base_patch16 (12x768 encoder on the
      288 visible tokens, 8x512 decoder), bf16, batch 16, mask ratio 0.5,
      random weights from seed 0, for both builds — the pretrain CLI's (B1,
      B3/B4, B2 off) and the config's default (B2, its backward through
      B3/B4) — one step's loss and gradients against the all-plain step on
-     the same weights, images and noise; 8 steps on one repeated batch and
-     noise at a constant learning rate, with the counters set to 0 just
-     before and read just after (B1 42, B3 20, B4 20, B2 0 per step; with
-     B2 on: B2 20, B1 22, B3 20, B4 20), ms per step and images/s; a
-     torch.profiler pass over two steps.
+     the same weights, images and noise; 8 steps on one repeated batch at
+     a constant learning rate, the masking noise drawn inside each step
+     from a generator reseeded before it, replayed from the step's CUDA
+     graph (B1 42, B3 20, B4 20, B2 0 per replay; with B2 on: B2 20, B1
+     22, B3 20, B4 20), against 8 eager steps from the same start, as in
+     the train phase.
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failed check raises: nonzero
 exit code and no result line. Needs a CUDA device; uses no JAX.
@@ -104,6 +123,10 @@ FORWARD_REL_TOL = 2.2e-2  # docs/PARITY.md:235, times max(1, max|ref|)
 # and each trainable gradient's cosine at least 0.99.
 TRAIN_LOSS_REL_TOL = 2.2e-2
 GRAD_COSINE_MIN = 0.99
+# A training step replayed from its CUDA graph against the same step run
+# eagerly from the same start (the same capturable AdamW, the same kernels
+# in the same order): the same bits in every loss, weight and Adam tensor.
+GRAPHED_TOL = 0.0
 WINDOWS = 16
 TRAIN_BATCH = 8  # cli/finetune.py:35
 # The train phase's learning rate, held constant (min_lr = lr, no
@@ -1008,15 +1031,131 @@ def reset_counts():
     reset_launch_counts()
 
 
-def train_phase(torch, dev):
-    """The finetune step of the bf16 training build at full width."""
+def decoders() -> dict:
+    """Which image decoders import here (the CLIs' input path): the
+    package's version (True where it has none), or the error. With
+    torchvision, a JPEG that it encodes is decoded on the CPU and on the
+    card."""
+    import importlib
+
+    out = {}
+    for name in ("torchvision", "torchvision.io", "PIL.Image", "cv2"):
+        try:
+            importlib.import_module(name)
+            out[name] = getattr(sys.modules[name.split(".")[0]], "__version__", True)
+        except Exception as e:  # ImportError, or an install that fails at import
+            out[name] = f"{type(e).__name__}: {e}"[:160]
+    if not isinstance(out["torchvision.io"], str):
+        try:
+            import torch
+            from torchvision.io import decode_jpeg, encode_jpeg
+
+            img = torch.full((3, 16, 16), 128, dtype=torch.uint8)
+            data = encode_jpeg(img)
+            out["decode_jpeg_cpu"] = tuple(decode_jpeg(data).shape) == (3, 16, 16)
+            out["decode_jpeg_cuda"] = tuple(decode_jpeg(data, device="cuda").shape) == (3, 16, 16)
+        except Exception as e:
+            out["decode_jpeg"] = f"{type(e).__name__}: {e}"[:160]
+    return out
+
+
+def step_events(torch, step, args, before=None):
+    """``step(*args)`` between CUDA events (after ``before()``, not
+    timed); the host then reads the loss, so each step starts on an idle
+    card. Returns (loss, ms)."""
+    if before is not None:
+        before()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    m = step(*args)
+    end.record()
+    loss = float(m["loss"])
+    return loss, start.elapsed_time(end)
+
+
+def run_steps(torch, step, calls, before=None):
+    """Each call's loss and ms (``step_events``), the device memory
+    allocated before the run (the weights and optimizer state of every
+    model alive) and the most the steps allocated above it (an eager
+    step's activations; a replay's are in its graph's pool)."""
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = zip(*(step_events(torch, step, args, before) for args in calls))
+    return dict(losses=list(losses), step_ms=list(ms), resident_gb=resident / 2 ** 30,
+                step_peak_gb=(torch.cuda.max_memory_allocated() - resident) / 2 ** 30)
+
+
+def captured(torch, capture):
+    """Run ``capture()`` (graph captures); returns its seconds and the
+    device memory it left reserved, in GB: the graphs' pool."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    capture()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return seconds, (torch.cuda.memory_reserved() - before) / 2 ** 30
+
+
+def compare_states(torch, what: str, graphed, eager, losses_g, losses_e) -> dict:
+    """The graphed run against the eager one from the same start: step 1's
+    loss equal to the bit, and every loss, parameter and Adam tensor
+    within GRAPHED_TOL (0: the same bits). Raises otherwise."""
+    loss_d = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(losses_g, losses_e))
+    params = max(max_abs(p.detach(), q.detach())
+                 for p, q in zip(graphed.model.parameters(), eager.model.parameters()))
+    moments = max(max_abs(x, y) for p, q in zip(graphed.params, eager.params)
+                  for x, y in zip(graphed.moments(p), eager.moments(q)))
+    out = dict(first_loss_bitwise=losses_g[0] == losses_e[0], max_loss_rel_diff=loss_d,
+               max_param_abs_diff=params, max_moment_abs_diff=moments, limit=GRAPHED_TOL)
+    if not out["first_loss_bitwise"] or max(loss_d, params, moments) > GRAPHED_TOL:
+        raise AssertionError(f"{what}: graphed against eager {out}")
+    return out
+
+
+def graph_launches(runner, per_step, steps: int, what: str) -> dict:
+    """The runner's launches over ``steps`` replays against ``per_step``,
+    and no wrapper launching outside the graphs. Raises otherwise."""
+    eager = launch_counts()
+    if any(eager.values()) or runner.replays != steps \
+            or runner.launched != {k: v * steps for k, v in per_step.items()}:
+        raise AssertionError(f"{what}: {runner.replays} replays launched {runner.launched}, "
+                             f"eager launches {eager}; expected {per_step} per replay")
+    return {k: v / steps for k, v in runner.launched.items()}
+
+
+def finetune_setup(torch, dev, seed: int = 0, accum: int = 1, graphed=None, **over):
+    """(state, step, mask generator, cfg) of the bf16 training build at
+    full width, random weights from ``seed``."""
     from countr_tpu_torch.config import TrainConfig, fast_mode_overrides
     from countr_tpu_torch.engine import train as engine
     from countr_tpu_torch.models import build_countr
 
-    over = fast_mode_overrides("bf16", training=True)
-    model = build_countr("mae_vit_base6_patch16", seed=0, training=True, **over)
-    cfg = TrainConfig(batch_size=TRAIN_BATCH, lr=TRAIN_LR, min_lr=TRAIN_LR, warmup_epochs=0)
+    model = build_countr("mae_vit_base6_patch16", seed=seed, training=True,
+                         **{**fast_mode_overrides("bf16", training=True), **over})
+    cfg = TrainConfig(batch_size=TRAIN_BATCH, lr=TRAIN_LR, min_lr=TRAIN_LR, warmup_epochs=0,
+                      accum_iter=accum)
+    state = engine.init_train_state(model, cfg, steps_per_epoch=100, world_batch=TRAIN_BATCH)
+    if {state.schedule(i) for i in range(8)} != {TRAIN_LR}:
+        raise AssertionError("the train phase's learning rate is not constant")
+    gen = torch.Generator(device=dev)
+    return state, engine.make_finetune_step(state, cfg, gen, graphed=graphed), gen, cfg
+
+
+def train_phase(torch, dev):
+    """The finetune step of the bf16 training build at full width: one
+    step against the plain kernels; 8 steps replayed from CUDA graphs (the
+    main path) against 8 eager steps from the same start; the eval step,
+    graphed against eager before and after them; one unfrozen step.
+    Returns (launches, the graphed run's losses and final weights)."""
+    from countr_tpu_torch.bench import events_ms
+    from countr_tpu_torch.engine import train as engine
+
+    state, step, gen, cfg = finetune_setup(torch, dev)
+    model = state.model
     batch = {k: torch.from_numpy(v).to(dev)
              for k, v in train_batch(np.random.default_rng(6), TRAIN_BATCH).items()}
     labels = engine.frozen_labels(model)
@@ -1026,33 +1165,30 @@ def train_phase(torch, dev):
     # the same weights, batch and mask. The exemplar convs' biases and the
     # cross-attention key biases have an exact gradient of 0 (an
     # affine-free InstanceNorm, a softmax follow) and hold fp32 noise.
-    gen = torch.Generator(device=dev).manual_seed(1)
-    mask = engine.loss_mask(384, cfg.loss_mask_p, gen)
+    mask = engine.loss_mask(384, cfg.loss_mask_p, torch.Generator(device=dev).manual_seed(1))
 
     def loss_and_grads():
-        model.zero_grad(set_to_none=True)
+        state.zero_grads()
         loss, _ = engine.finetune_loss(model, batch["image"], batch["gt_density"],
                                        batch["boxes"], 3, mask)
         loss.backward()
         params = dict(model.named_parameters())
-        return loss.item(), {n: params[n].grad for n in trainable}
+        return loss.item(), {n: params[n].grad.clone() for n in trainable}
 
     loss_k, grads_k = loss_and_grads()
     with plain_kernels():
         loss_p, grads_p = loss_and_grads()
-    model.zero_grad(set_to_none=True)
+    state.zero_grads()
     cosines = {}
     for n in trainable:
         a, b = grads_k[n], grads_p[n]
-        if (a is None) != (b is None):
-            raise AssertionError(f"train: {n} has a gradient on one path only")
-        if a is None or n.startswith("decoder_proj") and n.endswith(".bias") \
-                or n.endswith("attn.wk.bias"):
+        if n.startswith("decoder_proj") and n.endswith(".bias") or n.endswith("attn.wk.bias"):
+            continue
+        if n == "shot_token":  # no gradient at shot 3: zeros on both paths
+            if a.any() or b.any():
+                raise AssertionError("train: the shot token has a gradient at shot 3")
             continue
         cosines[n] = cosine(a, b)
-    missing = [n for n in trainable if grads_k[n] is None]
-    if missing != ["shot_token"]:
-        raise AssertionError(f"train: trainable tensors without a gradient at shot 3: {missing}")
     rel = abs(loss_k - loss_p) / abs(loss_p)
     worst = min(cosines, key=cosines.get)
     if not rel <= TRAIN_LOSS_REL_TOL or not cosines[worst] >= GRAD_COSINE_MIN:
@@ -1063,62 +1199,177 @@ def train_phase(torch, dev):
         min_cosine_tensor=worst, cosine_limit=GRAD_COSINE_MIN, tensors_compared=len(cosines))
     del grads_k, grads_p
 
-    # The path itself: 8 steps on the repeated batch, shots 3, 2, 1, 0 twice.
-    state = engine.init_train_state(model, cfg, steps_per_epoch=100, world_batch=TRAIN_BATCH)
-    if {state.schedule(i) for i in range(8)} != {TRAIN_LR}:
-        raise AssertionError("the train phase's learning rate is not constant")
-    mask_gen = torch.Generator(device=dev)
-    step = engine.make_finetune_step(state, cfg, mask_gen)
+    # The eager twin, from the same seed; the eval step on the graphed
+    # model, graphed (captured now, at the first weights) and eager.
+    twin, twin_step, twin_gen, _ = finetune_setup(torch, dev, graphed=False)
+    eval_batch = {**batch, "valid": torch.ones(TRAIN_BATCH, device=dev)}
+    eval_g, eval_e = engine.make_eval_step(model), engine.make_eval_step(model, graphed=False)
+
+    def eval_check(when: str) -> dict:
+        want = eval_e(eval_batch, 3)
+        reset_counts()
+        eval_g.runner.zero_counts()
+        got = eval_g(eval_batch, 3)
+        if not all(torch.equal(got[k], want[k]) for k in want):
+            raise AssertionError(f"eval ({when}): graphed {got} against eager {want}")
+        return {k: float(v) for k, v in got.items()}
+
+    eval_check("first capture")
+    eval_before = eval_check("before training")
+    eval_launches = graph_launches(eval_g.runner, {"B1": 44, "B2": 0, "B3": 18, "B4": 0,
+                                                   "B5": 0, "B6": 0}, 1, "eval")
+
+    # The path itself: 8 steps on the repeated batch and loss mask, shots
+    # 3, 2, 1, 0 twice; the graphs of the four shots captured first.
     shots = [3, 2, 1, 0] * 2
-    losses, step_ms = [], []
-    torch.cuda.synchronize()
+    capture_s, pool_gb = captured(torch, lambda: [step.capture(batch, s) for s in (3, 2, 1, 0)])
     reset_counts()
-    for s in shots:
-        mask_gen.manual_seed(2)  # one repeated batch, its loss mask too
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        m = step(batch, s)
-        end.record()
-        losses.append(float(m["loss"]))
-        step_ms.append(start.elapsed_time(end))
-    launches = launch_counts()
+    eager = run_steps(torch, twin_step, [(batch, s) for s in shots],
+                      lambda: twin_gen.manual_seed(2))
+    eager_launches = launch_counts()
+    reset_counts()
+    step.runner.zero_counts()
+    graphed = run_steps(torch, step, [(batch, s) for s in shots], lambda: gen.manual_seed(2))
     per_step = {"B1": 44, "B2": 0, "B3": 18, "B4": 6, "B5": 0, "B6": 0}
-    ms = float(np.mean(step_ms[1:]))
-    say("train", steps=len(shots), shots=shots, losses=losses, lr=TRAIN_LR, step_ms=step_ms,
-        ms_per_step=ms, images_per_s=TRAIN_BATCH / ms * 1e3, launches=launches,
-        launches_per_step=per_step)
-    if launches != {k: v * len(shots) for k, v in per_step.items()}:
-        raise AssertionError(f"train: launches {launches} over {len(shots)} steps, "
-                             f"expected {per_step} per step")
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"train: losses {losses}")
-    if not losses[4] < losses[0]:
-        raise AssertionError(f"train: shot-3 loss did not fall: step 1 {losses[0]}, "
-                             f"step 5 {losses[4]}")
-    say("profile", path="train step", **profile_run(torch, lambda: step(batch, 3), 2))
-    del state, step, model
+    per_replay = graph_launches(step.runner, per_step, len(shots), "train")
+    if eager_launches != {k: v * len(shots) for k, v in per_step.items()}:
+        raise AssertionError(f"train (eager): launches {eager_launches} over {len(shots)} "
+                             f"steps, expected {per_step} per step")
+    launches = dict(step.runner.launched)
+    same = compare_states(torch, "train", state, twin, graphed["losses"], eager["losses"])
+    losses = graphed["losses"]
+    ref = dict(losses=losses, weights={k: v.cpu() for k, v in model.state_dict().items()})
+    if not all(np.isfinite(losses)) or not losses[4] < losses[0]:
+        raise AssertionError(f"train: shot-3 loss did not fall: {losses}")
+    eval_after = eval_check("after 8 steps")
+    if eval_after == eval_before:
+        raise AssertionError("eval: the 8 steps did not change the eval metrics")
+    ms_g, ms_e = float(np.mean(graphed["step_ms"][1:])), float(np.mean(eager["step_ms"][1:]))
+    say("train", steps=len(shots), shots=shots, lr=TRAIN_LR, graphs=len(step.runner),
+        capture_s=capture_s, graph_pool_gb=pool_gb, ms_per_step=ms_g, images_per_s=TRAIN_BATCH / ms_g * 1e3,
+        eager_ms_per_step=ms_e, eager_images_per_s=TRAIN_BATCH / ms_e * 1e3,
+        graphed=graphed, eager=eager, launches=launches, launches_per_replay=per_replay,
+        eager_launches=eager_launches, graphed_vs_eager=same)
+    say("eval", shot=3, batch=TRAIN_BATCH, graphed_equals_eager=True,
+        before_training=eval_before, after_8_steps=eval_after, launches_per_replay=eval_launches,
+        ms=events_ms(lambda: eval_g(eval_batch, 3), iters=10),
+        eager_ms=events_ms(lambda: eval_e(eval_batch, 3), iters=10))
+    say("profile", path="train step (graphed)", **profile_run(torch, lambda: step(batch, 3), 2))
+    say("profile", path="train step (eager)",
+        **profile_run(torch, lambda: twin_step(batch, 3), 2))
+    del state, step, twin, twin_step, model, eval_g, eval_e
     torch.cuda.empty_cache()
 
     # One step with the encoder trained too: B4 runs in all 18 blocks.
-    model = build_countr("mae_vit_base6_patch16", seed=0, training=True,
-                         freeze_encoder=False, **over)
-    state = engine.init_train_state(model, cfg, steps_per_epoch=100, world_batch=TRAIN_BATCH)
-    step = engine.make_finetune_step(state, cfg, torch.Generator(device=dev).manual_seed(3))
-    step(batch, 3)  # warm up
-    torch.cuda.synchronize()
+    state, step, gen, _ = finetune_setup(torch, dev, freeze_encoder=False)
+    gen.manual_seed(3)
+    step.capture(batch, 3)
     reset_counts()
-    t0 = time.perf_counter()
-    m = step(batch, 3)
-    loss = float(m["loss"])
-    unfrozen_ms = (time.perf_counter() - t0) * 1e3
-    unfrozen = launch_counts()
-    if unfrozen != {"B1": 44, "B2": 0, "B3": 18, "B4": 18, "B5": 0, "B6": 0} \
-            or not np.isfinite(loss):
-        raise AssertionError(f"train, encoder unfrozen: launches {unfrozen}, loss {loss}")
-    say("train_unfrozen", loss=loss, ms=unfrozen_ms, launches=unfrozen)
-    del state, step, model
+    step.runner.zero_counts()
+    loss, ms = step_events(torch, step, (batch, 3))
+    unfrozen = graph_launches(step.runner, {"B1": 44, "B2": 0, "B3": 18, "B4": 18, "B5": 0,
+                                            "B6": 0}, 1, "train, encoder unfrozen")
+    if not np.isfinite(loss):
+        raise AssertionError(f"train, encoder unfrozen: loss {loss}")
+    say("train_unfrozen", loss=loss, ms=ms, launches_per_replay=unfrozen)
+    del state, step
     torch.cuda.empty_cache()
-    return launches
+    return launches, ref
+
+
+def accum_phase(torch, dev):
+    """Finetune at accum_iter 2 at full width: 4 mini-steps (shots 3, 3,
+    1, 1) replayed from the accumulate and update graphs against the same
+    eager mini-steps from the same start; the weights keep their bits on
+    the mini-steps that accumulate."""
+    state, step, gen, _ = finetune_setup(torch, dev, accum=2)
+    twin, twin_step, twin_gen, _ = finetune_setup(torch, dev, accum=2, graphed=False)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in train_batch(np.random.default_rng(8), TRAIN_BATCH).items()}
+    shots = [3, 3, 1, 1]
+    for s in (3, 1):
+        step.capture(batch, s)
+    reset_counts()
+    step.runner.zero_counts()
+    losses = {"graphed": [], "eager": []}
+    kept = []
+    for i, s in enumerate(shots):
+        before = [p.clone() for p in state.params]
+        for kind, st, fn, g in (("graphed", state, step, gen), ("eager", twin, twin_step,
+                                                                  twin_gen)):
+            g.manual_seed(20 + i)
+            losses[kind].append(float(fn(batch, s)["loss"]))
+        kept.append(all(torch.equal(p, q) for p, q in zip(state.params, before)))
+        del before
+    if kept != [True, False, True, False] or (state.step, state.updates) != (4, 2):
+        raise AssertionError(f"accum: weights unchanged per mini-step {kept}, "
+                             f"step/updates {state.step}/{state.updates}")
+    # the eager twin's launches are all the wrappers counted: the graphed
+    # mini-steps launched nothing outside their graphs
+    per_step = {"B1": 44, "B2": 0, "B3": 18, "B4": 6, "B5": 0, "B6": 0}
+    want = {k: v * len(shots) for k, v in per_step.items()}
+    if launch_counts() != want or step.runner.launched != want \
+            or step.runner.replays != len(shots):
+        raise AssertionError(f"accum: wrappers {launch_counts()}, graphs {step.runner.launched} "
+                             f"over {step.runner.replays} replays; {per_step} per step")
+    per_replay = {k: v / len(shots) for k, v in step.runner.launched.items()}
+    same = compare_states(torch, "accum", state, twin, losses["graphed"], losses["eager"])
+    say("accum", accum_iter=2, shots=shots, graphs=len(step.runner), losses=losses,
+        weights_unchanged=kept, updates=state.updates, launches_per_replay=per_replay,
+        graphed_vs_eager=same)
+    del state, step, twin, twin_step
+    torch.cuda.empty_cache()
+
+
+def checkpoint_phase(torch, dev, ref):
+    """Save and resume at full width: 4 graphed steps from seed 0 (the
+    train phase's first 4), save; a fresh state from another seed, its
+    graphs captured, restored in place; 4 more graphed steps. Every loss
+    and the final weights equal the train phase's uninterrupted 8."""
+    import os
+    import tempfile
+
+    from countr_tpu_torch.engine import checkpoint as ckpt
+
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in train_batch(np.random.default_rng(6), TRAIN_BATCH).items()}
+    shots = [3, 2, 1, 0] * 2
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="out_ckpt_", dir=root) as d:
+        state, step, gen, _ = finetune_setup(torch, dev)
+        losses = [step_events(torch, step, (batch, s), lambda: gen.manual_seed(2))[0]
+                  for s in shots[:4]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = ckpt.save_checkpoint(d, 4, state, keep=1)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        del state, step
+        torch.cuda.empty_cache()
+
+        state, step, gen, _ = finetune_setup(torch, dev, seed=1)
+        for s in (3, 2, 1, 0):
+            step.capture(batch, s)
+        ptrs = [t.data_ptr() for t in state.mutable()]
+        t0 = time.perf_counter()
+        restored = ckpt.restore_checkpoint(d, state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if restored != 4 or [t.data_ptr() for t in state.mutable()] != ptrs:
+            raise AssertionError("checkpoint: the restore replaced live tensors")
+        losses += [step_events(torch, step, (batch, s), lambda: gen.manual_seed(2))[0]
+                   for s in shots[4:]]
+    weights = max(max_abs(v.cpu(), ref["weights"][k])
+                  for k, v in state.model.state_dict().items())
+    loss_d = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"]))
+    if max(weights, loss_d) > GRAPHED_TOL or len(step.runner) != 4:
+        raise AssertionError(f"checkpoint: resumed losses {losses} against {ref['losses']}, "
+                             f"weights max|d| {weights}, {len(step.runner)} graphs")
+    say("checkpoint", steps=len(shots), saved_at=4, file_mb=size / 2 ** 20, save_s=save_s,
+        restore_s=restore_s, losses=losses, max_loss_rel_diff=loss_d,
+        max_weight_abs_diff=weights, limit=GRAPHED_TOL, graphs_recaptured=0)
+    del state, step
+    torch.cuda.empty_cache()
 
 
 # Launches per MAE pretrain step (12 encoder and 8 decoder blocks): the
@@ -1132,40 +1383,51 @@ PRETRAIN_LAUNCHES = {
 }
 
 
-def pretrain_phase(torch, dev, fused: bool):
-    """The MAE pretrain step of one build at full width: the pretrain
-    CLI's (``fused`` False: B1, B3/B4) or the config's default (``fused``
-    True: B2 with its backward through B3/B4, B1)."""
+def pretrain_setup(torch, dev, fused: bool, graphed=None):
     from countr_tpu_torch.config import TrainConfig
     from countr_tpu_torch.engine import train as engine
     from countr_tpu_torch.models import build_mae
 
-    build = "config_default" if fused else "cli"
     model = build_mae("mae_vit_base_patch16", seed=0, fused_attn_block=fused, device=dev)
     cfg = TrainConfig(batch_size=PRETRAIN_BATCH, lr=PRETRAIN_LR, min_lr=PRETRAIN_LR,
                       warmup_epochs=0)
+    state = engine.init_train_state(model, cfg, steps_per_epoch=100, world_batch=PRETRAIN_BATCH)
+    if {state.schedule(i) for i in range(8)} != {PRETRAIN_LR}:
+        raise AssertionError("the pretrain phase's learning rate is not constant")
+    gen = torch.Generator(device=dev)
+    return state, engine.make_pretrain_step(state, cfg, gen, graphed=graphed), gen
+
+
+def pretrain_phase(torch, dev, fused: bool):
+    """The MAE pretrain step of one build at full width: the pretrain
+    CLI's (``fused`` False: B1, B3/B4) or the config's default (``fused``
+    True: B2 with its backward through B3/B4, B1). One step against the
+    plain kernels; 8 steps replayed from the CUDA graph (the main path)
+    against 8 eager steps from the same start, the masking noise drawn
+    inside each step from a generator reseeded before it."""
+    build = "config_default" if fused else "cli"
+    state, step, gen = pretrain_setup(torch, dev, fused)
+    model = state.model
     imgs = torch.from_numpy(train_batch(np.random.default_rng(10), PRETRAIN_BATCH)["image"]).to(dev)
-    gen = torch.Generator(device=dev).manual_seed(11)
-    noise = torch.rand((PRETRAIN_BATCH, model.cfg.num_patches), generator=gen, device=dev)
+    noise = torch.rand((PRETRAIN_BATCH, model.cfg.num_patches),
+                       generator=torch.Generator(device=dev).manual_seed(11), device=dev)
 
     # One step's loss and gradients, kernels against plain versions, on the
     # same weights, images and noise. The key biases (the middle third of
     # every qkv bias) have an exact gradient of 0 and hold fp32 noise.
     def loss_and_grads():
-        model.zero_grad(set_to_none=True)
+        state.zero_grads()
         loss, pred, _ = model(imgs, noise=noise)
         loss.backward()
-        return loss.item(), pred.shape, {n: p.grad for n, p in model.named_parameters()}
+        return loss.item(), pred.shape, {n: p.grad.clone() for n, p in model.named_parameters()}
 
     loss_k, pred_shape, grads_k = loss_and_grads()
     with plain_kernels():
         loss_p, _, grads_p = loss_and_grads()
-    model.zero_grad(set_to_none=True)
+    state.zero_grads()
     cosines = {}
     for n, a in grads_k.items():
         b = grads_p[n]
-        if a is None or b is None:
-            raise AssertionError(f"pretrain ({build}): {n} has no gradient")
         if n.endswith("attn.qkv.bias"):
             c = a.numel() // 3
             a, b = torch.cat([a[:c], a[2 * c:]]), torch.cat([b[:c], b[2 * c:]])
@@ -1183,35 +1445,36 @@ def pretrain_phase(torch, dev, fused: bool):
     del grads_k, grads_p
 
     # The path itself: 8 steps on the repeated images and noise.
-    state = engine.init_train_state(model, cfg, steps_per_epoch=100, world_batch=PRETRAIN_BATCH)
-    if {state.schedule(i) for i in range(8)} != {PRETRAIN_LR}:
-        raise AssertionError("the pretrain phase's learning rate is not constant")
-    step = engine.make_pretrain_step(state, cfg)
-    losses, step_ms = [], []
-    torch.cuda.synchronize()
+    twin, twin_step, twin_gen = pretrain_setup(torch, dev, fused, graphed=False)
+    capture_s, pool_gb = captured(torch, lambda: step.capture(imgs))
     reset_counts()
-    for _ in range(8):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        m = step(imgs, noise)
-        end.record()
-        losses.append(float(m["loss"]))
-        step_ms.append(start.elapsed_time(end))
-    launches = launch_counts()
+    eager = run_steps(torch, twin_step, [(imgs,)] * 8, lambda: twin_gen.manual_seed(11))
+    eager_launches = launch_counts()
+    reset_counts()
+    step.runner.zero_counts()
+    graphed = run_steps(torch, step, [(imgs,)] * 8, lambda: gen.manual_seed(11))
     per_step = PRETRAIN_LAUNCHES[fused]
-    ms = float(np.mean(step_ms[1:]))
-    say("pretrain", build=build, steps=8, losses=losses, lr=PRETRAIN_LR, step_ms=step_ms,
-        ms_per_step=ms, images_per_s=PRETRAIN_BATCH / ms * 1e3, launches=launches,
-        launches_per_step=per_step,
-        max_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
-    if launches != {k: v * 8 for k, v in per_step.items()}:
-        raise AssertionError(f"pretrain ({build}): launches {launches} over 8 steps, "
-                             f"expected {per_step} per step")
+    per_replay = graph_launches(step.runner, per_step, 8, f"pretrain ({build})")
+    if eager_launches != {k: v * 8 for k, v in per_step.items()}:
+        raise AssertionError(f"pretrain ({build}, eager): launches {eager_launches} over 8 "
+                             f"steps, expected {per_step} per step")
+    launches = dict(step.runner.launched)
+    same = compare_states(torch, f"pretrain ({build})", state, twin, graphed["losses"],
+                          eager["losses"])
+    losses = graphed["losses"]
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"pretrain ({build}): losses {losses}")
-    say("profile", path=f"pretrain step ({build})",
-        **profile_run(torch, lambda: step(imgs, noise), 2))
-    del state, step, model
+    ms_g, ms_e = float(np.mean(graphed["step_ms"][1:])), float(np.mean(eager["step_ms"][1:]))
+    say("pretrain", build=build, steps=8, lr=PRETRAIN_LR, capture_s=capture_s,
+        graph_pool_gb=pool_gb, ms_per_step=ms_g, images_per_s=PRETRAIN_BATCH / ms_g * 1e3, eager_ms_per_step=ms_e,
+        eager_images_per_s=PRETRAIN_BATCH / ms_e * 1e3, graphed=graphed, eager=eager,
+        launches=launches, launches_per_replay=per_replay, eager_launches=eager_launches,
+        graphed_vs_eager=same)
+    say("profile", path=f"pretrain step ({build}, graphed)",
+        **profile_run(torch, lambda: step(imgs), 2))
+    say("profile", path=f"pretrain step ({build}, eager)",
+        **profile_run(torch, lambda: twin_step(imgs), 2))
+    del state, step, twin, twin_step, model
     torch.cuda.empty_cache()
     return launches
 
@@ -1231,7 +1494,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     smi = smi_line()
     say("environment", device=name, count=torch.cuda.device_count(), nvidia_smi=smi,
-        torch=torch.__version__, cuda=torch.version.cuda)
+        torch=torch.__version__, cuda=torch.version.cuda, decoders=decoders())
 
     t0 = time.perf_counter()
     phase_build()
@@ -1256,7 +1519,10 @@ def main() -> int:
     bench_phase(engine)
     del model, engine
     torch.cuda.empty_cache()
-    by_path["train"] = train_phase(torch, dev)
+    by_path["train"], ref = train_phase(torch, dev)
+    accum_phase(torch, dev)
+    checkpoint_phase(torch, dev, ref)
+    del ref
     by_path["pretrain"] = pretrain_phase(torch, dev, fused=False)
     by_path["pretrain_b2_on"] = pretrain_phase(torch, dev, fused=True)
 

@@ -8,11 +8,21 @@ with ``load_state_dict(strict=True)``. ``state_dict_from_flax`` and
 turn its flax param trees (as numpy arrays) into the same state_dicts —
 the port's own copy of the logic of ``export_countr_state_dict``, and
 the inverse of ``convert_mae_state_dict``.
+
+``save_checkpoint``, ``restore_checkpoint``, ``restore_params`` and
+``latest_step`` save and resume the training state (the counterparts of
+the JAX package's orbax functions, ``countr_tpu/engine/checkpoint.py``
+``save_checkpoint`` ... ``latest_step``), one ``torch.save`` file per step
+in the reference layout (util/misc.py:311-318): ``{"model", "optimizer",
+"epoch"}``, plus the accumulator and the step counts. A restore copies
+into the live tensors, so CUDA graphs captured over them stay valid.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+import os
+import re
+from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -145,3 +155,96 @@ def load_weights(model: torch.nn.Module, state_dict: Mapping[str, Any]) -> None:
     sd = {k: v if torch.is_tensor(v) else torch.from_numpy(np.array(v, np.float32))
           for k, v in state_dict.items()}
     model.load_state_dict(sd, strict=True)
+
+
+_CHECKPOINT = "checkpoint-{}.pth"  # the reference's file name (util/misc.py:304-335)
+_CHECKPOINT_RE = re.compile(r"checkpoint-(\d+)\.pth")
+
+
+def _checkpoint_path(directory: str, step: int) -> str:
+    return os.path.join(directory, _CHECKPOINT.format(step))
+
+
+def _steps(directory: str) -> List[int]:
+    if not os.path.isdir(directory):
+        return []
+    return sorted(int(m.group(1)) for m in map(_CHECKPOINT_RE.fullmatch, os.listdir(directory))
+                  if m)
+
+
+def latest_step(directory: str) -> Optional[int]:
+    """The highest step saved under ``directory``, or None."""
+    steps = _steps(directory)
+    return steps[-1] if steps else None
+
+
+def save_checkpoint(directory: str, step: int, state, keep: int = 3) -> str:
+    """Write ``state`` as ``directory/checkpoint-{step}.pth`` and keep the
+    ``keep`` highest steps (orbax's ``max_to_keep``). ``state`` is a
+    ``TrainState`` (the model, the optimizer, ``epoch`` = ``step``, and
+    the state's ``step``, ``updates``, ``accum_iter`` and accumulator) or
+    a module (its weights alone: a params-only file). The file is written
+    under a temporary name and renamed, so a reader never sees half of
+    one. The random generators are not part of the state: a caller seeds
+    them per batch, as the JAX package derives its keys from the step.
+    Returns the path."""
+    os.makedirs(directory, exist_ok=True)
+    if isinstance(state, torch.nn.Module):
+        payload = {"model": state.state_dict(), "epoch": step}
+    else:
+        payload = {"model": state.model.state_dict(),
+                   "optimizer": state.optimizer.state_dict(), "epoch": step,
+                   "step": state.step, "updates": state.updates,
+                   "accum_iter": state.accum_iter, "accum": list(state.acc)}
+    path = _checkpoint_path(directory, step)
+    torch.save(payload, path + ".tmp")
+    os.replace(path + ".tmp", path)
+    for old in _steps(directory)[:-keep]:
+        os.remove(_checkpoint_path(directory, old))
+    return path
+
+
+def _resolve_step(directory: str, step: Optional[int]) -> int:
+    step = latest_step(directory) if step is None else step
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {directory}")
+    return step
+
+
+def restore_checkpoint(directory: str, state, step: Optional[int] = None) -> int:
+    """Restore the ``TrainState`` saved at ``step`` (default: the latest)
+    into ``state`` in place: the weights, Adam's moments and step counts
+    and the accumulator are copied into the live tensors (the gradient
+    buffers, which every step zeroes first, are zeroed), and ``step`` and
+    ``updates`` are set; no tensor is replaced, so the graphs of a
+    graphed step stay valid. Returns the step restored."""
+    step = _resolve_step(directory, step)
+    ckpt = torch.load(_checkpoint_path(directory, step), map_location="cpu", weights_only=False)
+    if "optimizer" not in ckpt:
+        raise ValueError(f"{_checkpoint_path(directory, step)} holds weights only; "
+                         "use restore_params")
+    if ckpt["accum_iter"] != state.accum_iter:
+        raise ValueError(f"the checkpoint accumulates over {ckpt['accum_iter']} mini-steps, "
+                         f"the state over {state.accum_iter}")
+    saved = ckpt["optimizer"]
+    want = [len(g["params"]) for g in state.optimizer.param_groups]
+    if [len(g["params"]) for g in saved["param_groups"]] != want \
+            or len(saved["state"]) != len(state.params):
+        raise ValueError("the checkpoint's optimizer groups do not match the state's")
+    state.model.load_state_dict(ckpt["model"])  # copy_ into each parameter
+    with torch.no_grad():
+        for i, p in enumerate(state.params):
+            for name, t in zip(("step", "exp_avg", "exp_avg_sq"), state.moments(p)):
+                t.copy_(saved["state"][i][name])
+        for a, s in zip(state.acc, ckpt["accum"], strict=True):
+            a.copy_(s)
+        state.zero_grads()
+    state.step, state.updates = ckpt["step"], ckpt["updates"]
+    return step
+
+
+def restore_params(directory: str, step: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """The model weights alone, from a full or a params-only checkpoint
+    at ``step`` (default: the latest), as fp32 CPU tensors (load them with
+    ``load_weights``)."""
+    return load_torch_checkpoint(_checkpoint_path(directory, _resolve_step(directory, step)))

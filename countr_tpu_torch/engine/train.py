@@ -1,22 +1,27 @@
 """Training engine (counterpart of ``countr_tpu/engine/train.py``):
-AdamW with the reference's decay groups and frozen encoder, the
-masked-MSE finetune step, the eval step, the MAE pretrain step and the
-encoder transfer.
+AdamW with the reference's decay groups and frozen encoder, gradient
+accumulation with ``optax.MultiSteps``' semantics, the masked-MSE
+finetune step, the eval step, the MAE pretrain step and the encoder
+transfer.
 
 Mixed precision as in the JAX package: bf16 activations with fp32
 parameters and optimizer state (the reference's fp16 AMP + GradScaler,
 util/misc.py:260-287, is not needed with bf16's fp32 exponent range).
 
-The JAX step is a pure function of a TrainState; here the state holds
-the model and a ``torch.optim.AdamW`` that update in place, and a step
-returns the metrics. Gradient accumulation (``MultiSteps``), the
+The JAX step is a pure function of a TrainState, compiled once per shape
+and ``shot_num``. Here the state holds the model, a ``torch.optim.AdamW``
+and every buffer a step writes, allocated once and updated in place; a
+step returns the metrics. On a CUDA device each step is replayed from a
+CUDA graph (``engine/graphs.py``), one per input shape, ``shot_num`` and,
+under accumulation, kind of mini-step: the counterpart of ``jax.jit``.
+On the CPU, or with ``graphed=False``, the same step runs eagerly. The
 resident-store steps and the in-step device augmentation are not ported
 yet.
 """
 
 from __future__ import annotations
 
-import dataclasses
+import functools
 from typing import Callable, Dict, Mapping, Tuple
 
 import torch
@@ -24,6 +29,7 @@ from torch import nn
 
 from countr_tpu_torch.config import DENSITY_SCALE, TrainConfig
 from countr_tpu_torch.engine.schedule import warmup_cosine
+from countr_tpu_torch.models.vit import casts_at_use
 
 
 def decay_mask(model: nn.Module) -> Dict[str, bool]:
@@ -53,12 +59,15 @@ def make_optimizer(
     """AdamW(0.9, 0.95, eps 1e-8) + warmup-cosine. Two groups: the
     >=2-D parameters with ``cfg.weight_decay``, the rest without. When
     the model's encoder is frozen (``model.cfg.freeze_encoder``) its
-    parameters are in no group: no optimizer state, no update."""
-    if cfg.accum_iter != 1:
-        raise NotImplementedError(
-            "gradient accumulation (accum_iter > 1, optax.MultiSteps in the JAX "
-            "package) is not ported yet"
-        )
+    parameters are in no group: no optimizer state, no update.
+
+    On a CUDA device the optimizer is ``capturable`` (its step counts on
+    the device, ``foreach``) and the learning rate is one 0-d device
+    tensor shared by both groups, which ``TrainState`` writes before each
+    step: a CUDA graph of the step reads it at every replay, where a float
+    would be frozen into the graph. Gradient accumulation
+    (``cfg.accum_iter``, optax.MultiSteps in the JAX package) is
+    ``TrainState``'s."""
     sched = warmup_cosine(
         cfg.resolved_lr(world_batch), epochs=cfg.epochs,
         warmup_epochs=cfg.warmup_epochs, steps_per_epoch=steps_per_epoch,
@@ -70,47 +79,193 @@ def make_optimizer(
     for name, p in model.named_parameters():
         if frozen.get(name) != "frozen":
             groups[decay[name]].append(p)
+    dev = next(model.parameters()).device
+    cuda = dev.type == "cuda"
+    lr = torch.zeros((), device=dev) if cuda else 0.0
     opt = torch.optim.AdamW(
-        [{"params": groups[True], "weight_decay": cfg.weight_decay},
-         {"params": groups[False], "weight_decay": 0.0}],
-        lr=0.0, betas=(0.9, 0.95), eps=1e-8,
+        [{"params": groups[True], "weight_decay": cfg.weight_decay, "lr": lr},
+         {"params": groups[False], "weight_decay": 0.0, "lr": lr}],
+        lr=lr, betas=(0.9, 0.95), eps=1e-8,
+        **(dict(capturable=True, foreach=True) if cuda else {}),
     )
+    # the eager steps on the card run the same capturable update on
+    # purpose (the same bits as the graphed ones): no warning about it
+    opt._warned_capturable_if_run_uncaptured = True
     return opt, sched
 
 
-@dataclasses.dataclass
 class TrainState:
-    """The model, its optimizer and LR schedule, and the count of updates
-    made (the JAX TrainState's ``step``)."""
+    """The model, its AdamW and LR schedule, and the counts ``step``
+    (mini-steps taken: the JAX TrainState's ``step``) and ``updates``
+    (AdamW updates made: MultiSteps' ``gradient_step``, the inner
+    optimizer's count). Without accumulation the two are equal.
 
-    model: nn.Module
-    optimizer: torch.optim.Optimizer
-    schedule: Callable[[int], float]
-    step: int = 0
+    Every buffer a step writes exists from the start and is only ever
+    written in place, so a CUDA graph of the step stays valid: a gradient
+    for every trainable parameter (zeroed in place at each step, never set
+    to None), Adam's moments and step counts, and under ``accum_iter`` > 1
+    the accumulator. A trainable parameter the step's loss does not reach
+    (the exemplar CNN at zero shots, the shot token otherwise) thus gets a
+    zero gradient, as in optax: its moments decay and weight decay
+    applies.
 
-    def apply_gradients(self) -> None:
-        """One AdamW update from the parameters' ``.grad``, as optax's:
-        the learning rate is the schedule at the step count before the
-        update (so a warmup starts at lr 0), and every trainable
-        parameter is updated, one without a gradient (the exemplar CNN at
-        zero shots, the shot token otherwise) as with a zero gradient —
-        its moments decay and weight decay applies. torch's AdamW would
-        skip a ``None`` gradient, so it is filled with zeros first."""
-        lr = self.schedule(self.step)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-        self.optimizer.step()
+    Gradient accumulation follows ``optax.MultiSteps`` (use_grad_mean):
+    mini-step n of each cycle of ``accum_iter`` folds its gradient g into
+    the running mean, acc + (g - acc) / (n + 1); the first accum_iter - 1
+    mini-steps leave the parameters, moments and ``updates`` untouched,
+    and the last applies AdamW to the mean at lr = schedule(updates) and
+    clears the accumulator."""
+
+    def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
+                 schedule: Callable[[int], float], accum_iter: int = 1):
+        if accum_iter < 1:
+            raise ValueError(f"accum_iter must be >= 1; got {accum_iter}")
+        self.model = model
+        self.optimizer = optimizer
+        self.schedule = schedule
+        self.accum_iter = accum_iter
+        self.step = 0
+        self.updates = 0
+        self.params = [p for g in optimizer.param_groups for p in g["params"]]
+        self.device = self.params[0].device
+        with torch.no_grad():
+            self.grads = [torch.zeros_like(p) for p in self.params]
+            self.acc = [torch.zeros_like(p) for p in self.params] if accum_iter > 1 else []
+            self.divisor = torch.ones((), device=self.device)  # n + 1 of MultiSteps
+            for group in optimizer.param_groups:
+                for p in group["params"]:
+                    st = optimizer.state[p]
+                    if not st:  # what torch's AdamW makes at its first step
+                        cap = group.get("capturable", False)
+                        st["step"] = torch.zeros((), device=p.device if cap else "cpu")
+                        st["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                        st["exp_avg_sq"] = torch.zeros_like(p,
+                                                            memory_format=torch.preserve_format)
+        for p, g in zip(self.params, self.grads):
+            p.grad = g
+
+    def moments(self, p: torch.Tensor) -> list:
+        """Adam's tensors for parameter ``p``: step, exp_avg, exp_avg_sq."""
+        st = self.optimizer.state[p]
+        return [st["step"], st["exp_avg"], st["exp_avg_sq"]]
+
+    def mutable(self) -> list:
+        """Every tensor a step writes: the trainable parameters, their
+        gradients, Adam's tensors and the accumulator."""
+        return (list(self.params) + self.grads + self.acc
+                + [t for p in self.params for t in self.moments(p)])
+
+    def begin_step(self) -> bool:
+        """The host's part before a mini-step: put the gradient buffers
+        back if something replaced them, write the learning rate of an
+        update and the accumulator's divisor into the optimizer and onto
+        the device. Returns whether this mini-step updates."""
+        n = self.step % self.accum_iter
+        update = n == self.accum_iter - 1
+        for p, g in zip(self.params, self.grads):
+            if p.grad is not g:
+                p.grad = g
+        if update:
+            lr = self.schedule(self.updates)
+            for group in self.optimizer.param_groups:
+                if torch.is_tensor(group["lr"]):
+                    group["lr"].fill_(lr)
+                else:
+                    group["lr"] = lr
+        if self.accum_iter > 1:
+            self.divisor.fill_(n + 1)
+        return update
+
+    def zero_grads(self) -> None:
+        torch._foreach_zero_(self.grads)
+
+    def apply_gradients(self, update: bool) -> None:
+        """The device's part after the backward: fold the gradients into
+        the accumulator (MultiSteps' acc + (g - acc) / (n + 1), in that
+        order of operations) and, on an update, AdamW on the mean (the
+        gradients themselves without accumulation)."""
+        if self.accum_iter > 1:
+            torch._foreach_sub_(self.grads, self.acc)
+            torch._foreach_div_(self.grads, self.divisor)
+            if update:
+                torch._foreach_add_(self.grads, self.acc)
+                torch._foreach_zero_(self.acc)
+            else:
+                torch._foreach_add_(self.acc, self.grads)
+        if update:
+            self.optimizer.step()
+
+    def end_step(self, update: bool) -> None:
         self.step += 1
+        self.updates += update
 
 
 def init_train_state(
     model: nn.Module, cfg: TrainConfig, steps_per_epoch: int, world_batch: int,
 ) -> TrainState:
     opt, sched = make_optimizer(model, cfg, steps_per_epoch, world_batch)
-    return TrainState(model, opt, sched)
+    return TrainState(model, opt, sched, cfg.accum_iter)
+
+
+def _resolve_graphed(device: torch.device, graphed) -> bool:
+    """``graphed`` None means CUDA graphs on a CUDA device and eager
+    steps on the CPU; True on a CPU model raises."""
+    if graphed is None:
+        return device.type == "cuda"
+    if graphed and device.type != "cuda":
+        raise ValueError(f"graphed steps need a CUDA device; the model is on {device}")
+    return bool(graphed)
+
+
+def _shapes(*tensors) -> tuple:
+    return tuple((tuple(t.shape), t.dtype) for t in tensors)
+
+
+def _replay(runner, key, fn, *inputs) -> Dict:
+    """``runner(key, fn, *inputs)``, captured with the casts inside the
+    graph; the metrics are copied out of the graph's pool."""
+    with casts_at_use():
+        out = runner(key, fn, *inputs)
+    return {k: v.clone() for k, v in out.items()}
+
+
+def _graphed_train_step(state: TrainState, device_step, generator, split):
+    """The step of ``make_finetune_step`` / ``make_pretrain_step`` on a
+    CUDA device. ``split(*args)`` gives a call's tensor inputs and static
+    arguments; ``device_step(*inputs, update=..., **static)`` is replayed
+    from a graph keyed on the static arguments, the inputs' shapes and the
+    kind of mini-step. Under accumulation each key has two graphs, one
+    that accumulates and one that updates: the host knows which mini-step
+    comes, so neither graph runs work that the other needs, where one
+    graph that selects would run AdamW at every mini-step and discard it.
+    The accumulator's divisor and the learning rate are device scalars
+    that ``TrainState.begin_step`` writes before each replay.
+    ``step.capture(*args)`` captures a key's graphs without taking a step;
+    ``step.runner`` counts the replays and their kernel launches."""
+    from countr_tpu_torch.engine.graphs import GraphRunner
+
+    runner = GraphRunner(state.device, state.mutable, (generator,))
+
+    def graph(args, kw, update: bool):
+        inputs, static = split(*args, **kw)
+        key = (tuple(sorted(static.items())), _shapes(*inputs), update)
+        return key, functools.partial(device_step, update=update, **static), inputs
+
+    def step(*args, **kw) -> Dict:
+        update = state.begin_step()
+        key, fn, inputs = graph(args, kw, update)
+        m = _replay(runner, key, fn, *inputs)
+        state.end_step(update)
+        return m
+
+    def capture(*args, **kw) -> None:
+        for update in (True,) if state.accum_iter == 1 else (False, True):
+            key, fn, inputs = graph(args, kw, update)
+            with casts_at_use():
+                runner.capture(key, fn, *inputs)
+
+    step.runner, step.capture = runner, capture
+    return step
 
 
 def finetune_loss(model, imgs, gt, boxes, shot_num: int, mask):
@@ -131,16 +286,26 @@ def count_errors(out: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     return (pred_cnt - gt_cnt).abs()
 
 
-def finetune_core(state: TrainState, imgs, gt, boxes, shot_num: int, mask) -> Dict:
-    """Forward, backward and one update on the given batch and loss mask
-    (the JAX ``_finetune_core``). Returns the metrics ``loss`` (before the
-    update), ``mae`` and ``mse`` of the counts, as 0-d tensors."""
-    state.optimizer.zero_grad(set_to_none=True)
+def _finetune_device(state: TrainState, imgs, gt, boxes, shot_num: int, mask,
+                     update: bool) -> Dict:
+    """The device's part of a finetune mini-step (what a graph holds)."""
+    state.zero_grads()
     loss, out = finetune_loss(state.model, imgs, gt, boxes, shot_num, mask)
     loss.backward()
-    state.apply_gradients()
+    state.apply_gradients(update)
     err = count_errors(out.detach(), gt)
     return {"loss": loss.detach(), "mae": err.mean(), "mse": err.square().mean()}
+
+
+def finetune_core(state: TrainState, imgs, gt, boxes, shot_num: int, mask) -> Dict:
+    """Forward, backward and one mini-step on the given batch and loss
+    mask, eagerly (the JAX ``_finetune_core``). Returns the metrics
+    ``loss`` (before the update), ``mae`` and ``mse`` of the counts, as
+    0-d tensors."""
+    update = state.begin_step()
+    m = _finetune_device(state, imgs, gt, boxes, shot_num, mask, update)
+    state.end_step(update)
+    return m
 
 
 def loss_mask(hw: int, p: float, generator: torch.Generator) -> torch.Tensor:
@@ -150,69 +315,128 @@ def loss_mask(hw: int, p: float, generator: torch.Generator) -> torch.Tensor:
 
 def make_finetune_step(
     state: TrainState, cfg: TrainConfig, generator: torch.Generator | None = None,
+    graphed: bool | None = None,
 ) -> Callable[[Mapping[str, torch.Tensor], int], Dict]:
     """Returns step(batch, shot_num) -> metrics, updating ``state``.
 
     batch: {'image' [B,384,384,3], 'gt_density' [B,384,384], 'boxes'
     [B,3,64,64,3]} on the model's device. The loss mask is drawn from
     ``generator`` (default: one on the model's device seeded with
-    ``cfg.seed``)."""
-    dev = next(state.model.parameters()).device
+    ``cfg.seed``) inside the step. On a CUDA device (``graphed`` None or
+    True) the step is replayed from a CUDA graph per batch shape,
+    ``shot_num`` and kind of mini-step; ``step.capture(batch, shot_num)``
+    captures a shot's graphs ahead, ``step.runner`` counts the replays.
+    ``graphed=False`` runs the same step eagerly, as on the CPU."""
     gen = generator
     if gen is None:
-        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        gen = torch.Generator(device=state.device).manual_seed(cfg.seed)
     hw = state.model.cfg.img_size
 
-    def step(batch, shot_num: int) -> Dict:
+    def device_step(imgs, gt, boxes, *, shot_num: int, update: bool) -> Dict:
         mask = loss_mask(hw, cfg.loss_mask_p, gen)
-        return finetune_core(state, batch["image"], batch["gt_density"].float(),
-                             batch["boxes"], shot_num, mask)
+        return _finetune_device(state, imgs, gt.float(), boxes, shot_num, mask, update)
+
+    def inputs(batch, shot_num):
+        return batch["image"], batch["gt_density"], batch["boxes"]
+
+    if _resolve_graphed(state.device, graphed):
+        return _graphed_train_step(
+            state, device_step, gen,
+            lambda batch, shot_num: (inputs(batch, shot_num), {"shot_num": shot_num}))
+
+    def step(batch, shot_num: int) -> Dict:
+        update = state.begin_step()
+        m = device_step(*inputs(batch, shot_num), shot_num=shot_num, update=update)
+        state.end_step(update)
+        return m
 
     return step
 
 
-def make_eval_step(model: nn.Module):
+def make_eval_step(model: nn.Module, graphed: bool | None = None):
     """Returns eval(batch, shot_num) -> masked error SUMS ``err_sum``,
     ``sq_sum``, ``nae_sum`` and ``n`` (reference val loop:
     FSC_finetune_cross.py:328-350); ``batch["valid"]`` masks padding
-    samples."""
+    samples. On a CUDA device (``graphed`` None or True) it is replayed
+    from a CUDA graph per batch shape and ``shot_num``, with the bf16
+    casts of the weights inside the graph, so that the graph stays valid
+    while training changes the weights; ``graphed=False`` runs it
+    eagerly, as on the CPU."""
 
-    @torch.inference_mode()
-    def eval_fn(batch, shot_num: int) -> Dict:
-        out = model(batch["image"], batch["boxes"], shot_num)
-        gt = batch["gt_density"].float()
+    def device_eval(image, gt, boxes, valid, *, shot_num: int) -> Dict:
+        out = model(image, boxes, shot_num)
+        gt = gt.float()
         err = count_errors(out, gt)
         gt_cnt = gt.sum(dim=(1, 2)) / DENSITY_SCALE
         nae = torch.where(gt_cnt > 0, err / gt_cnt.clamp_min(1e-9), torch.zeros_like(err))
-        v = batch["valid"].float()
+        v = valid.float()
         return {"err_sum": (err * v).sum(), "sq_sum": (err.square() * v).sum(),
                 "nae_sum": (nae * v).sum(), "n": v.sum()}
 
+    def inputs(batch):
+        return batch["image"], batch["gt_density"], batch["boxes"], batch["valid"]
+
+    dev = next(model.parameters()).device
+    if not _resolve_graphed(dev, graphed):
+        @torch.inference_mode()
+        def eval_fn(batch, shot_num: int) -> Dict:
+            return device_eval(*inputs(batch), shot_num=shot_num)
+
+        return eval_fn
+
+    from countr_tpu_torch.engine.graphs import GraphRunner
+
+    runner = GraphRunner(dev)
+
+    @torch.inference_mode()
+    def eval_fn(batch, shot_num: int) -> Dict:
+        ins = inputs(batch)
+        return _replay(runner, (shot_num, _shapes(*ins)),
+                       functools.partial(device_eval, shot_num=shot_num), *ins)
+
+    eval_fn.runner = runner
     return eval_fn
 
 
 def make_pretrain_step(
     state: TrainState, cfg: TrainConfig, generator: torch.Generator | None = None,
+    graphed: bool | None = None,
 ) -> Callable[..., Dict]:
     """Returns step(imgs, noise=None) -> metrics, updating ``state``: the
-    forward, backward and one AdamW update of the MAE loss over all
+    forward, backward and one mini-step of the MAE loss over all
     parameters (the JAX ``make_pretrain_step``, ``engine/train.py:368-383``;
     reference hot loop: FSC_pretrain.py:254-299). imgs [B, H, W, 3] on
     the model's device; the masking noise [B, L] is ``noise`` or, without
-    it, drawn from ``generator`` (default: one on the model's device
-    seeded with ``cfg.seed``). Metrics: ``loss`` before the update, a 0-d
-    tensor."""
-    dev = next(state.model.parameters()).device
+    it, drawn inside the step from ``generator`` (default: one on the
+    model's device seeded with ``cfg.seed``). Metrics: ``loss`` before the
+    update, a 0-d tensor. On a CUDA device (``graphed`` None or True) the
+    step is replayed from a CUDA graph per input shape and kind of
+    mini-step (``step.capture(imgs, noise)``, ``step.runner`` as for the
+    finetune step); ``graphed=False`` runs it eagerly, as on the CPU."""
     gen = generator
     if gen is None:
-        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        gen = torch.Generator(device=state.device).manual_seed(cfg.seed)
+
+    def device_step(imgs, *noise, update: bool) -> Dict:
+        state.zero_grads()
+        loss, _, _ = state.model(imgs, noise=noise[0] if noise else None,
+                                 generator=None if noise else gen)
+        loss.backward()
+        state.apply_gradients(update)
+        return {"loss": loss.detach()}
+
+    def inputs(imgs, noise=None):
+        return (imgs,) if noise is None else (imgs, noise)
+
+    if _resolve_graphed(state.device, graphed):
+        return _graphed_train_step(state, device_step, gen,
+                                   lambda *a, **kw: (inputs(*a, **kw), {}))
 
     def step(imgs, noise=None) -> Dict:
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, _, _ = state.model(imgs, noise=noise, generator=None if noise is not None else gen)
-        loss.backward()
-        state.apply_gradients()
-        return {"loss": loss.detach()}
+        update = state.begin_step()
+        m = device_step(*inputs(imgs, noise), update=update)
+        state.end_step(update)
+        return m
 
     return step
 

@@ -18,6 +18,9 @@ CLIs, where B2 is off), behind the JAX package's gates.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -28,6 +31,24 @@ from countr_tpu_torch.ops.fused_block import fused_attention_block
 from countr_tpu_torch.ops.fused_ln import fused_layer_norm
 from countr_tpu_torch.ops.fused_mlp import fused_mlp_block
 
+_CASTS = threading.local()
+
+
+@contextlib.contextmanager
+def casts_at_use():
+    """Within it (on this thread, as ``torch.no_grad``), ``cast_param``
+    casts at every use and reads no cached copy. The training and eval
+    steps are captured in it: a CUDA graph would keep the cached copy's
+    address, which goes stale when the weights change in place (an
+    optimizer step, a checkpoint restore), while a cast inside the graph
+    reads the weights themselves."""
+    prev = getattr(_CASTS, "at_use", False)
+    _CASTS.at_use = True
+    try:
+        yield
+    finally:
+        _CASTS.at_use = prev
+
 
 def cast_param(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``p`` in ``dtype``. Under autograd (grad mode on and ``p``
@@ -35,10 +56,11 @@ def cast_param(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     gradient comes back to the fp32 parameter, as flax's cast-through
     VJP does. Otherwise (inference, ``no_grad``, a frozen parameter) the
     copy is cached on the parameter until it changes, so a bf16 weight is
-    made once, not at every forward; the values are the same."""
+    made once, not at every forward, except within ``casts_at_use``; the
+    values are the same."""
     if p.dtype == dtype:
         return p
-    if p.requires_grad and torch.is_grad_enabled():
+    if getattr(_CASTS, "at_use", False) or p.requires_grad and torch.is_grad_enabled():
         return p.to(dtype)
     hit = getattr(p, "_countr_cast", None)
     key = (p._version, p.device, dtype)
