@@ -5,7 +5,8 @@
 Phases, one line each on stdout:
   1. environment: the card and its power limit, and which image decoders
      import (torchvision, torchvision.io with a JPEG decoded on the CPU
-     and on the card, PIL, cv2);
+     and on the card, PIL, cv2); it raises when PIL or cv2 does not
+     import (the CLIs decode and resize with them);
   2. build: the CUDA libraries from countr_tpu_torch/csrc (nvcc, sm_90a;
      attn_block.cu for B2, attn.cu for B3/B4, mlp_block.cu for B5 and
      cross_block.cu for B6, one nvcc each, started together) and the
@@ -55,7 +56,34 @@ Phases, one line each on stdout:
   8. bench: the JSON line of countr_tpu_torch.bench (few-shot) on the
      same engine: images/s of count_batch (min / median / max of 8
      passes), graphed, eager and pipeline windows/s;
-  9. train: full-width mae_vit_base6_patch16 in the bf16 training build
+  9. cli_test: countr_tpu_torch.cli.test on a synthetic FSC147 tree of 24
+     images (scripts/make_synthetic_fsc.py, in a temporary out_smoke_*
+     directory): as a subprocess in the bf16 fast mode (exit code, stats,
+     results.csv), then its main in this process on the CLI's own engine,
+     with the graphs captured first and the counters and the graph
+     runner's counts set to 0 just before and read just after (no eager
+     launch; B1 26 and B2 18 per replay), each image's count against
+     count on the same decoded arrays (COUNT_BATCH_REL_TOL), zero-shot
+     (--box_bound 0), the gate (--expect_mae 0 exits 1); the same for
+     --dtype mixed_fast and mixed_bal, with the fp32 head against the
+     same head in float64 on one window batch's token grid
+     (HEAD_FP64_REL_TOL); images/s per mode and the head's device ms in
+     bf16 (subpixel) against fp32 (the `head` line);
+  10. serve: countr_tpu_torch.cli.serve in this process on 127.0.0.1,
+     port 0, warmed up at two sizes with the grid path; 16 POSTs of JPEG
+     bytes from 8 client threads (few-shot, zero-shot, one with boxes
+     under 10 px that must answer grid_mode) with the counters set to 0:
+     no eager launch, B1 26 and B2 18 per replay, no graph captured
+     during traffic; each count against count_image on the same bytes;
+     then SERVE_TIMED_REQUESTS more of the same bytes, timed, each count
+     against its first answer; /healthz and a 404; requests/s, p50, p99
+     and max ms of the timed requests;
+  11. demo: countr_tpu_torch.cli.demo on a directory of 3 JPEGs: each
+     panel written, each count against count_image;
+  12. test_carpk: countr_tpu_torch.cli.test_carpk on a local CARPK tree of
+     4 PNGs at 720x1280: B1 26 and B2 18 per replay, no eager launch, a
+     finite MAE;
+  13. train: full-width mae_vit_base6_patch16 in the bf16 training build
      (B1, B3/B4, B2 off, encoder frozen), random weights from seed 0,
      batch 8 of synthetic images, densities and exemplar crops — one
      step's loss and gradients against the same step with every kernel
@@ -73,15 +101,15 @@ Phases, one line each on stdout:
      device's idle share); the eval step replayed from its graph against
      eager eval before and after the 8 steps (B1 44, B3 18, B4 0 per
      replay); one graphed step with the encoder unfrozen (B4 18);
-  10. accum: the same build at accum_iter 2, 4 mini-steps (shots 3, 3,
+  14. accum: the same build at accum_iter 2, 4 mini-steps (shots 3, 3,
      1, 1) replayed from the accumulate and update graphs against the
      eager mini-steps from the same start; the weights keep their bits on
      the mini-steps that accumulate;
-  11. checkpoint: 4 graphed steps from seed 0, save_checkpoint, a fresh
+  15. checkpoint: 4 graphed steps from seed 0, save_checkpoint, a fresh
      state from seed 1 with its graphs captured, restore_checkpoint in
      place (no live tensor replaced, no graph captured again), 4 more
      graphed steps: the losses and weights of the train phase's 8;
-  12. pretrain: full-width mae_vit_base_patch16 (12x768 encoder on the
+  16. pretrain: full-width mae_vit_base_patch16 (12x768 encoder on the
      288 visible tokens, 8x512 decoder), bf16, batch 16, mask ratio 0.5,
      random weights from seed 0, for both builds — the pretrain CLI's (B1,
      B3/B4, B2 off) and the config's default (B2, its backward through
@@ -990,6 +1018,383 @@ def bench_phase(engine):
     return line
 
 
+# count_image and count on the same image against count_batch (the CLIs'
+# path) is COUNT_BATCH_REL_TOL (above); the mixed modes' fp32 head against
+# the same head in float64 on the same token grid: max|d| over max|ref| at
+# most 1e-5 (a full-fp32 head reads ~1e-7; one in TF32, 10-bit mantissas,
+# ~1e-3).
+HEAD_FP64_REL_TOL = 1e-5
+CLI_TEST_IMAGES = 24
+SERVE_SIZES = "640x480,1280x720"  # original pixels: widths 512 and 672 at H=384
+SERVE_TIMED_REQUESTS = 256  # enough samples that p99 is not simply the maximum
+
+
+def smoke_dir(prefix: str):
+    """A temporary directory inside the checkout (``out_*`` is
+    gitignored), removed with its contents on exit."""
+    import os
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    return tempfile.TemporaryDirectory(prefix=prefix, dir=root)
+
+
+def per_replay(runner, what: str):
+    """(graph launches, eager launches, replays) since the counters were
+    set to 0: no eager launch, and B1 26 and B2 18 per replay (the window
+    forward)."""
+    eager = launch_counts()
+    per = {k: v / max(runner.replays, 1) for k, v in runner.launched.items()}
+    if any(eager.values()) or runner.replays == 0 or per != {
+            "B1": 26, "B2": 18, "B3": 0, "B4": 0, "B5": 0, "B6": 0}:
+        raise AssertionError(f"{what}: eager launches {eager}, {runner.replays} replays, "
+                             f"launches per replay {per}")
+    return dict(runner.launched), eager, runner.replays
+
+
+def zero_counts(runner) -> None:
+    reset_counts()
+    runner.zero_counts()
+
+
+def recorded(engine) -> list:
+    """Every count_batch call of ``engine`` from now on, as (images, boxes,
+    rects, shot, results)."""
+    calls = []
+    orig = engine.count_batch
+
+    def spy(images, boxes_list, rects_list, shot_num, return_density=True):
+        res = orig(images, boxes_list, rects_list, shot_num=shot_num,
+                   return_density=return_density)
+        calls.append((images, boxes_list, rects_list, shot_num, res))
+        return res
+
+    engine.count_batch = spy
+    return calls
+
+
+def rel_diff(x: float, ref: float) -> float:
+    return abs(x - ref) / max(abs(ref), 1e-6)
+
+
+def check_rel(what: str, x: float, ref: float) -> float:
+    rel = rel_diff(x, ref)
+    if not (np.isfinite(x) and rel <= COUNT_BATCH_REL_TOL):
+        raise AssertionError(f"{what}: {x} against {ref} (rel {rel} > {COUNT_BATCH_REL_TOL})")
+    return rel
+
+
+def head_check(torch, engine, windows, y):
+    """The fp32 head of a mixed mode against the same head in float64 on
+    the same token grid (one window batch): max|d| / max|ref|."""
+    model = engine.model
+    with torch.inference_mode():
+        grid = model.decode_grid(model.encode(windows), y)
+        got = model.head(grid)
+        ref = model.head(grid, tuple(torch.float64 if d == torch.float32 else d
+                                     for d in model.cfg.head_dtypes))
+    rel = float((got.double() - ref).abs().max() / ref.abs().max())
+    if not rel <= HEAD_FP64_REL_TOL:
+        raise AssertionError(f"fp32 head against float64: rel {rel} > {HEAD_FP64_REL_TOL}")
+    return rel, grid
+
+
+def cli_test_phase(torch):
+    """countr_tpu_torch.cli.test on a synthetic FSC147 tree of
+    CLI_TEST_IMAGES images (scripts/make_synthetic_fsc.py): as a
+    subprocess (the real entry point; exit code and stats), then its main
+    in-process on the CLI's own engine with its graphs captured first and
+    the counters set to 0 (no eager launch; B1 26 and B2 18 per replay),
+    each image's count against ``count`` on the same decoded arrays;
+    zero-shot; the gate's exit code; the mixed_fast and mixed_bal modes
+    (images/s each, the fp32 head against float64); the head's device ms
+    in bf16 (subpixel) against fp32. Returns (graph launches, engine)."""
+    import os
+    import subprocess
+
+    from countr_tpu_torch.bench import events_ms
+    from countr_tpu_torch.cli import common
+    from countr_tpu_torch.cli import test as cli
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with smoke_dir("out_smoke_fsc_") as d:
+        subprocess.run([sys.executable, os.path.join(root, "scripts", "make_synthetic_fsc.py"),
+                        "--out", d, "--n_train", "0", "--n_val", "0",
+                        "--n_test", str(CLI_TEST_IMAGES)], check=True, capture_output=True)
+        base = ["--data_path", d, "--model", "mae_vit_base6_patch16"]
+        t0 = time.perf_counter()
+        sub = subprocess.run(
+            [sys.executable, "-m", "countr_tpu_torch.cli.test", *base, "--dtype", "bf16",
+             "--output_dir", os.path.join(d, "out_sub")],
+            cwd=root, capture_output=True, text=True, timeout=600)
+        sub_s = time.perf_counter() - t0
+        if sub.returncode != 0:
+            raise AssertionError(f"cli.test exited {sub.returncode}: {sub.stderr[-2000:]}")
+        with open(os.path.join(d, "out_sub", "log.txt")) as f:
+            sub_stats = json.loads(f.read().splitlines()[-1])
+        with open(os.path.join(d, "out_sub", "results.csv")) as f:
+            rows = len(f.read().splitlines()) - 1
+        if rows != CLI_TEST_IMAGES or not np.isfinite(sub_stats["MAE"]):
+            raise AssertionError(f"cli.test subprocess: {rows} rows, stats {sub_stats}")
+        say("cli_test", run="subprocess", seconds=sub_s, images=rows, **sub_stats)
+
+        def args_for(dtype, *extra):
+            return cli.get_args([*base, "--dtype", dtype, "--output_dir", os.path.join(d, dtype),
+                                 *extra])
+
+        out = {}
+        heads = {}
+        rng = np.random.default_rng(21)
+        windows = torch.from_numpy(rng.uniform(0, 1, (WINDOWS, 384, 384, 3)).astype(np.float32))
+        for dtype in ("bf16", "mixed_fast", "mixed_bal"):
+            args = args_for(dtype)
+            engine = common.build_engine(args, normalization=True)
+            t0 = time.perf_counter()
+            graphs = engine.capture_forwards((3, 0))
+            capture_s = time.perf_counter() - t0
+            runner = engine._pipeline.forward.runner
+            cli.main(args, engine=engine)  # warms the host path; images/s from the next run
+            calls = recorded(engine)
+            zero_counts(runner)
+            stats = cli.main(args, engine=engine)
+            launches, eager, replays = per_replay(runner, f"cli.test --dtype {dtype}")
+            worst = 0.0
+            for images, boxes, rects, shot, res in calls:
+                for k, r in enumerate(res):
+                    c = engine.count(images[k], boxes[k], rects[k], shot_num=shot)
+                    worst = max(worst, check_rel(f"cli.test {dtype} image {k}", r.count, c.count))
+            del engine.count_batch  # the spy
+            line = dict(run="in-process", dtype=dtype, images=sum(len(c[4]) for c in calls),
+                        window_batches=replays, graphs=graphs, capture_s=capture_s,
+                        images_per_s=1.0 / stats["Mean infer time"],
+                        max_rel_diff_vs_count=worst, rel_limit=COUNT_BATCH_REL_TOL,
+                        graph_launches=launches, eager_launches=eager,
+                        MAE=stats["MAE"], RMSE=stats["RMSE"])
+            y = torch.zeros((WINDOWS, 3, engine.model.cfg.decoder_embed_dim),
+                            device=engine.device, dtype=engine.model.dec_dtype)
+            wins = windows.to(engine.device)
+            if dtype == "bf16":
+                out["launches"], out["engine"] = launches, engine
+                zero = cli.main(args_for(dtype, "--box_bound", "0"), engine=engine)
+                try:
+                    cli.main(args_for(dtype, "--limit", "2", "--expect_mae", "0"), engine=engine)
+                except SystemExit as e:
+                    gate_code = e.code
+                else:
+                    gate_code = 0
+                if gate_code != 1 or not np.isfinite(zero["MAE"]):
+                    raise AssertionError(f"gate exit {gate_code}; zero-shot stats {zero}")
+                line.update(zero_shot_MAE=zero["MAE"], gate_exit_code=gate_code)
+                with torch.inference_mode():
+                    grid = engine.model.decode_grid(engine.model.encode(wins), y)
+            else:
+                line["head_fp64_rel_diff"], grid = head_check(torch, engine, wins, y)
+                line["head_fp64_rel_limit"] = HEAD_FP64_REL_TOL
+            with torch.inference_mode():
+                heads[dtype] = events_ms(lambda: engine.model.head(grid), iters=10)
+            line["head_ms"] = heads[dtype]
+            say("cli_test", **line)
+            if dtype != "bf16":
+                del engine, runner, calls
+                torch.cuda.empty_cache()
+    say("head", windows=WINDOWS, ms=heads, subpixel_bf16_ms=heads["bf16"],
+        fp32_ms=heads["mixed_fast"], mixed_bal_ms=heads["mixed_bal"])
+    return out["launches"], out["engine"]
+
+
+def jpeg_bytes(rng, h: int, w: int) -> bytes:
+    """A JPEG of bright blobs on noise, h x w."""
+    import io
+
+    from PIL import Image
+
+    img = rng.integers(0, 60, (h, w, 3)).astype(np.uint8)
+    for _ in range(max(8, w // 16)):
+        cy, cx, r = int(rng.integers(0, h)), int(rng.integers(0, w)), int(rng.integers(4, 12))
+        img[max(cy - r, 0):cy + r, max(cx - r, 0):cx + r] = rng.integers(150, 255, 3)
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "JPEG")
+    return buf.getvalue()
+
+
+def serve_phase(torch, engine):
+    """countr_tpu_torch.cli.serve in this process on 127.0.0.1, port 0: the
+    warm-up at two sizes with the grid path, then 16 POSTs of JPEG bytes
+    from 8 client threads (few-shot, zero-shot, one with 6 px boxes that
+    must answer grid_mode), with the counters set to 0: no eager launch,
+    B1 26 and B2 18 per replay, no graph captured during traffic; each
+    count against count_image on the same bytes. Then the timed run:
+    SERVE_TIMED_REQUESTS POSTs cycling over the same 16 payloads, each
+    count against that payload's first answer; requests/s and p50 / p99 /
+    max ms come from it. /healthz and a 404."""
+    import io
+    import threading
+    import urllib.error
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    from countr_tpu_torch.cli import serve as srv
+    from countr_tpu_torch.engine.inference import count_image
+
+    args = srv.get_args(["--port", "0"])
+    t0 = time.perf_counter()
+    graphs = srv.warmup(engine, SERVE_SIZES, args.max_batch_images, grid=True)
+    warmup_s = time.perf_counter() - t0
+    runner = engine._pipeline.forward.runner
+    server = srv.serve(args, engine)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    rng = np.random.default_rng(23)
+    few = "?boxes=40,50,110,120;200,100,270,170;400,200,470,270"
+    reqs = []
+    for i in range(16):
+        h, w = ((480, 640), (720, 1280))[i % 2]
+        query = few if i % 3 else ""
+        if i == 5:
+            query = "?boxes=40,50,46,56;200,100,206,106;400,200,406,206"
+        reqs.append((jpeg_bytes(rng, h, w), query))
+
+    def post(req):
+        data, query = req
+        t = time.perf_counter()
+        r = urllib.request.Request(f"{url}/count{query}", data=data, method="POST")
+        with urllib.request.urlopen(r, timeout=120) as resp:
+            body = json.load(resp)
+        return body, (time.perf_counter() - t) * 1e3
+
+    try:
+        zero_counts(runner)
+        before = len(runner)
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            answers = list(pool.map(post, reqs))
+            timed_reqs = [reqs[i % len(reqs)] for i in range(SERVE_TIMED_REQUESTS)]
+            t0 = time.perf_counter()
+            timed = list(pool.map(post, timed_reqs))
+            wall_s = time.perf_counter() - t0
+        if len(runner) != before:
+            raise AssertionError(f"serve: {len(runner) - before} graphs captured during traffic")
+        launches, eager, replays = per_replay(runner, "serve")
+        with urllib.request.urlopen(f"{url}/healthz", timeout=30) as resp:
+            health = json.load(resp)
+        try:
+            urllib.request.urlopen(f"{url}/nope", timeout=30)
+            code = 200
+        except urllib.error.HTTPError as e:
+            code = e.code
+        if health != {"ok": True} or code != 404:
+            raise AssertionError(f"serve: /healthz {health}, /nope {code}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(30)
+    worst = 0.0
+    for i, ((data, query), (body, _)) in enumerate(zip(reqs, answers)):
+        boxes = [[float(v) for v in p.split(",")] for p in query[7:].split(";")] if query else []
+        want = count_image(engine, Image.open(io.BytesIO(data)), boxes)
+        if body["grid_mode"] != want.grid_mode or body["grid_mode"] != (i == 5):
+            raise AssertionError(f"serve request {i}: grid_mode {body['grid_mode']}")
+        worst = max(worst, check_rel(f"serve request {i}", body["count"], want.count))
+    worst_timed = 0.0
+    for i, (body, _) in enumerate(timed):
+        first = answers[i % len(reqs)][0]
+        if body["grid_mode"] != first["grid_mode"]:
+            raise AssertionError(f"serve timed request {i}: grid_mode {body['grid_mode']}")
+        worst_timed = max(worst_timed, check_rel(f"serve timed request {i}", body["count"],
+                                                 first["count"]))
+    ms = sorted(m for _, m in timed)
+    say("serve", requests=len(reqs), timed_requests=len(timed), clients=8, warmup_s=warmup_s,
+        graphs=graphs, graphs_captured_during_traffic=0, wall_s=wall_s,
+        requests_per_s=len(timed) / wall_s, p50_ms=ms[len(ms) // 2],
+        p99_ms=ms[int(0.99 * len(ms))], max_ms=ms[-1],
+        max_rel_diff_timed_vs_first=worst_timed,
+        window_batches=replays, graph_launches=launches, eager_launches=eager,
+        max_rel_diff_vs_count_image=worst, rel_limit=COUNT_BATCH_REL_TOL,
+        healthz=True, not_found=404)
+    return launches
+
+
+def demo_phase(engine):
+    """countr_tpu_torch.cli.demo on a directory of 3 JPEGs with 3 exemplar
+    boxes: each panel written, each count against count_image."""
+    import os
+
+    from countr_tpu_torch.cli import demo
+    from countr_tpu_torch.engine.inference import count_image
+
+    rng = np.random.default_rng(25)
+    boxes = "40,50,110,120;200,100,270,170;400,200,470,270"
+    with smoke_dir("out_smoke_demo_") as d:
+        src = os.path.join(d, "in")
+        os.makedirs(src)
+        for i, (h, w) in enumerate(((480, 640), (720, 1280), (600, 800))):
+            with open(os.path.join(src, f"img_{i}.jpg"), "wb") as f:
+                f.write(jpeg_bytes(rng, h, w))
+        args = demo.get_args(["--input_path", src, "--output_path", os.path.join(d, "out"),
+                              "--boxes", boxes])
+        t0 = time.perf_counter()
+        res = demo.main(args, engine=engine)
+        demo_ms = (time.perf_counter() - t0) * 1e3
+        worst = 0.0
+        for name, r in res:
+            panel = os.path.join(d, "out", f"{name.rsplit('.', 1)[0]}__{round(r.count)}.png")
+            if not os.path.exists(panel):
+                raise AssertionError(f"demo: no panel {panel}")
+            want = count_image(engine, os.path.join(src, name), demo.parse_boxes(boxes))
+            worst = max(worst, check_rel(f"demo {name}", r.count, want.count))
+    if len(res) != 3:
+        raise AssertionError(f"demo counted {len(res)} images, not 3")
+    say("demo", images=len(res), ms=demo_ms, counts=[r.count for _, r in res],
+        max_rel_diff_vs_count_image=worst, rel_limit=COUNT_BATCH_REL_TOL)
+
+
+def carpk_phase(torch, cli_engine):
+    """countr_tpu_torch.cli.test_carpk on a local CARPK tree of 4 PNGs at
+    720x1280 (Images/, Annotations/*.txt): without TTN, 2 shots, the
+    postprocess; graphs captured first and the counters set to 0, B1 26
+    and B2 18 per replay and no eager launch; the MAE finite."""
+    import os
+
+    from PIL import Image
+
+    from countr_tpu_torch.cli import test_carpk
+    from countr_tpu_torch.engine.inference import CountingEngine
+
+    rng = np.random.default_rng(27)
+    with smoke_dir("out_smoke_carpk_") as d:
+        os.makedirs(os.path.join(d, "Images"))
+        os.makedirs(os.path.join(d, "Annotations"))
+        for i in range(4):
+            img = rng.integers(0, 80, (720, 1280, 3)).astype(np.uint8)
+            lines = []
+            for _ in range(int(rng.integers(30, 80))):
+                x, y = int(rng.integers(0, 1240)), int(rng.integers(0, 690))
+                bw, bh = (int(v) for v in rng.integers(24, 40, 2))
+                img[y:y + bh, x:x + bw] = rng.integers(150, 255, 3)
+                lines.append(f"{x} {y} {x + bw} {y + bh} 1")
+            Image.fromarray(img).save(os.path.join(d, "Images", f"car_{i}.png"))
+            with open(os.path.join(d, "Annotations", f"car_{i}.txt"), "w") as f:
+                f.write("\n".join(lines) + "\n")
+        args = test_carpk.get_args(["--carpk_root", d, "--output_dir", os.path.join(d, "out"),
+                                    "--batch_windows", str(WINDOWS)])
+        engine = CountingEngine(cli_engine.model, batch_windows=WINDOWS, normalization=False,
+                                device=cli_engine.device)
+        engine.capture_forwards((2,))
+        runner = engine._pipeline.forward.runner
+        zero_counts(runner)
+        t0 = time.perf_counter()
+        stats = test_carpk.main(args, engine=engine)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches, eager, replays = per_replay(runner, "cli.test_carpk")
+    if not (np.isfinite(stats["MAE"]) and np.isfinite(stats["RMSE"])):
+        raise AssertionError(f"test_carpk stats {stats}")
+    say("test_carpk", images=4, ms=ms, window_batches=replays, graph_launches=launches,
+        eager_launches=eager, MAE=stats["MAE"], RMSE=stats["RMSE"])
+    return launches
+
+
 def train_batch(rng, b: int):
     """A synthetic finetune batch of numpy arrays: [b, 384, 384, 3] images
     of bright blobs on noise in [0, 1], their densities (a unit dot at
@@ -1495,6 +1900,11 @@ def main() -> int:
     smi = smi_line()
     say("environment", device=name, count=torch.cuda.device_count(), nvidia_smi=smi,
         torch=torch.__version__, cuda=torch.version.cuda, decoders=decoders())
+    try:
+        import cv2  # noqa: F401
+        import PIL.Image  # noqa: F401
+    except ImportError as e:
+        raise RuntimeError(f"the CLIs decode and resize with PIL and cv2: {e}") from e
 
     t0 = time.perf_counter()
     phase_build()
@@ -1517,7 +1927,15 @@ def main() -> int:
     graph_phase(torch, engine)
     by_path["count_batch"] = count_batch_phase(torch, engine)
     bench_phase(engine)
-    del model, engine
+    # the mixed modes turn TF32 off for the process (an fp32 head); the
+    # later phases keep the flags they had
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    by_path["cli_test"], cli_engine = cli_test_phase(torch)
+    by_path["serve"] = serve_phase(torch, cli_engine)
+    demo_phase(cli_engine)
+    by_path["test_carpk"] = carpk_phase(torch, cli_engine)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    del model, engine, cli_engine
     torch.cuda.empty_cache()
     by_path["train"], ref = train_phase(torch, dev)
     accum_phase(torch, dev)

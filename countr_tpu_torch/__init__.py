@@ -19,8 +19,9 @@ kernels here:
   half-block, replaces ``pallas_block.py::_cross_block_kernel`` (B6).
 
 Entry points (``models.build_countr``, ``models.build_mae``,
-``engine.inference.CountingEngine``) run on the card unless the caller
-passes ``device="cpu"``.
+``engine.inference.CountingEngine``, and the CLIs under ``cli/``: test,
+serve, demo, test_carpk) run on the card unless the caller passes
+``device="cpu"`` (``--device cpu``).
 """
 
 import torch

@@ -8,7 +8,7 @@ presets and the training knobs.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -40,6 +40,13 @@ class CounTRConfig:
     the attention half-block), ``approx_gelu`` and ``subpixel_head``.
     The name ``use_pallas_attention`` is kept from the JAX config so the
     two packages' presets read alike; here it gates the Hopper kernels.
+
+    ``head_dtype`` overrides the density head's dtype (the mixed modes:
+    fp32 under a bf16 trunk); ``head_stage_dtypes`` overrides it per
+    stage (stage0 24^2, stage1 48^2, stage2 96^2, stage3 192^2,
+    pred + final upsample; None entries follow the head dtype), and is
+    incompatible with ``subpixel_head``. Every fp32 head stage runs in
+    full fp32 (``disable_tf32``).
     """
 
     img_size: int = IMG_SIZE
@@ -61,6 +68,7 @@ class CounTRConfig:
     head_dtype: Optional[torch.dtype] = None
     encoder_dtype: Optional[torch.dtype] = None
     decoder_dtype: Optional[torch.dtype] = None
+    head_stage_dtypes: Optional[Tuple[Optional[torch.dtype], ...]] = None
     subpixel_head: bool = False
     freeze_encoder: bool = True
     head_width: int = 256
@@ -71,6 +79,17 @@ class CounTRConfig:
                 f"head_width must be a multiple of the 8 GroupNorm groups "
                 f"(reference: models_mae_cross.py:80-100); got {self.head_width}"
             )
+        if self.head_stage_dtypes is not None:
+            if len(self.head_stage_dtypes) != 5:
+                raise ValueError(
+                    "head_stage_dtypes must have 5 entries (stage0..3, "
+                    f"pred); got {len(self.head_stage_dtypes)}"
+                )
+            if self.subpixel_head:
+                raise ValueError(
+                    "head_stage_dtypes is incompatible with subpixel_head "
+                    "(the fused phase-space path assumes one head dtype)"
+                )
 
     @property
     def grid_size(self) -> int:
@@ -79,6 +98,21 @@ class CounTRConfig:
     @property
     def num_patches(self) -> int:
         return self.grid_size * self.grid_size
+
+    @property
+    def head_dtypes(self) -> Tuple[torch.dtype, ...]:
+        """The density head's dtype per stage (stage0..3, pred), resolved."""
+        head = self.head_dtype or self.dtype
+        stages = self.head_stage_dtypes or (None,) * 5
+        return tuple(d or head for d in stages)
+
+    @property
+    def computes_fp32(self) -> bool:
+        """Whether any stage computes in fp32: then matrix products and
+        convolutions must not run in TF32 (``disable_tf32``)."""
+        stages = (self.encoder_dtype or self.dtype, self.decoder_dtype or self.dtype,
+                  *self.head_dtypes)
+        return torch.float32 in stages
 
 
 COUNTR_PRESETS = {
@@ -155,22 +189,34 @@ def pretrain_overrides(dtype: str, fused_attn_block: bool = False) -> dict:
                 fused_attn_block=fused_attn_block)
 
 
+DTYPE_MODES = ("bf16", "fp32", "mixed", "mixed_fast", "mixed_bal")
+
+
 def fast_mode_overrides(dtype: str, training: bool = False) -> dict:
-    """Config overrides of the ``--dtype`` modes this package carries:
-    ``bf16`` (the fast mode: fused kernels, tanh GELU, subpixel head) and
-    ``fp32`` (plain module path, exact). ``training`` turns the fused
-    attention half-block (B2) off and keeps the standalone kernels (B1,
-    B3/B4), as the JAX package's training builds do
-    (cli/common.py:126-130,149)."""
+    """Config overrides of the ``--dtype`` modes, as the JAX package's
+    CLIs map them (cli/common.py:86-176): ``bf16`` (the fast mode: fused
+    kernels, tanh GELU, subpixel head); ``fp32`` (plain module path,
+    exact); ``mixed`` (the bf16 trunk with its kernels and tanh GELU under
+    an fp32 density head on the reference formulation, no subpixel head);
+    ``mixed_fast`` (the same build as ``mixed`` here); ``mixed_bal``
+    (mixed with head stages 0-2 in bf16).
+    ``training`` turns the fused attention half-block (B2) off and keeps
+    the standalone kernels (B1, B3/B4), as the JAX package's training
+    builds do (cli/common.py:126-130,149)."""
+    bf16 = torch.bfloat16
     if dtype == "fp32":
         out = dict(dtype=torch.float32)
     elif dtype == "bf16":
-        out = dict(
-            dtype=torch.bfloat16, use_pallas_attention=True,
-            approx_gelu=True, subpixel_head=True,
-        )
+        out = dict(dtype=bf16, use_pallas_attention=True, approx_gelu=True, subpixel_head=True)
+    elif dtype in ("mixed", "mixed_fast", "mixed_bal"):
+        # mixed_fast is JAX's Precision.HIGH head; the card has no such
+        # mode (TF32 is coarser), so it runs as mixed's full fp32 head.
+        out = dict(dtype=bf16, use_pallas_attention=True, approx_gelu=True,
+                   subpixel_head=False, head_dtype=torch.float32,
+                   head_stage_dtypes=(bf16, bf16, bf16, None, None) if dtype == "mixed_bal"
+                   else None)
     else:
-        raise ValueError(f"unsupported dtype mode {dtype!r} (bf16 or fp32)")
+        raise ValueError(f"unsupported dtype mode {dtype!r} (one of {', '.join(DTYPE_MODES)})")
     if training:
         out["fused_attn_block"] = False
     return out
@@ -207,3 +253,4 @@ class TrainConfig:
             return self.lr
         # reference: FSC_finetune_cross.py:220-221 (lr = blr * eff/256)
         return self.blr * world_batch / 256.0
+

@@ -48,9 +48,14 @@ def stream_chunks(n_plain: int, n: int, b: int, multiple: int = 1):
         yield off, min(off + bk, n), bk
 
 
+# The window counts a tail chunk is padded to: ``chunk_plan`` picks from
+# them and ``forward_buckets`` captures a graph for each, so the two agree.
+TAIL_BUCKETS = (4, 8, 16, 24)
+
+
 def chunk_plan(n: int, b: int, multiple: int = 1):
     """(offset, batch_bucket) chunks covering n windows: full chunks of
-    b, then ONE tail bucket from {4, 8, 16, 24}, rounded up to
+    b, then ONE tail bucket from ``TAIL_BUCKETS``, rounded up to
     ``multiple`` and capped at b (b itself when none fits)."""
     out = []
     i = 0
@@ -59,13 +64,19 @@ def chunk_plan(n: int, b: int, multiple: int = 1):
         i += b
     tail = n - i
     if tail > 0:
-        for s in (4, 8, 16, 24):
+        for s in TAIL_BUCKETS:
             if tail <= s and s <= b and s % max(multiple, 1) == 0:
                 out.append((i, s))
                 break
         else:
             out.append((i, b))
     return out
+
+
+def forward_buckets(b: int):
+    """Every window count ``chunk_plan`` can give the forward at batch
+    ``b``: b, and the tail buckets that fit under it."""
+    return sorted({b, *(s for s in TAIL_BUCKETS if s <= b)})
 
 
 def _to_unit(win: torch.Tensor) -> torch.Tensor:

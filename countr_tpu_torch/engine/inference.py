@@ -1,6 +1,6 @@
 """Counting inference engine (counterpart of
 ``countr_tpu/engine/inference.py``: ``CountResult``,
-``small_exemplar_count`` and ``CountingEngine``).
+``small_exemplar_count``, ``CountingEngine`` and ``count_image``).
 
 1. exemplar crops are embedded ONCE per image;
 2. every sliding window (and all 9 grid crops' windows) is gathered into
@@ -39,7 +39,9 @@ import torch
 
 from countr_tpu_torch import disable_tf32, resolve_device
 from countr_tpu_torch.config import DENSITY_SCALE, EXEMPLAR_SIZE, TTN_THRESHOLD, WINDOW
-from countr_tpu_torch.engine.device_pipeline import MAP_KEYS, DevicePipeline, width_bucket
+from countr_tpu_torch.engine.device_pipeline import (
+    MAP_KEYS, DevicePipeline, forward_buckets, width_bucket,
+)
 from countr_tpu_torch.engine.stitch import (
     grid_crop_boxes, resample_maps, stitch, stitch_weights, window_starts,
 )
@@ -116,7 +118,10 @@ class CountingEngine:
         device=None,
     ):
         self.device = resolve_device(device)
-        if model.cfg.dtype == torch.float32:
+        # an fp32 stage (the fp32 model, the mixed modes' head) runs its
+        # products and convolutions in full fp32; the flags are read when
+        # a graph is captured, so they are set before any is
+        if model.cfg.computes_fp32:
             disable_tf32()
         self.model = model.to(self.device).eval()
         self.batch_windows = batch_windows
@@ -242,6 +247,24 @@ class CountingEngine:
                 pred_cnt = pred_cnt / e_cnt
 
         return CountResult(pred_cnt, density, grid_mode, e_cnt, raw_cnt, n_windows)
+
+    @torch.inference_mode()
+    def capture_forwards(self, shot_nums: Sequence[int] = (0, 1, 2, 3)) -> int:
+        """On the card, capture the window forward's CUDA graph at every
+        window bucket ``count_batch`` can run (``forward_buckets``) for
+        each shot count, so that no later call captures one; a no-op on
+        the CPU. Returns the number of graphs held."""
+        if self.device.type != "cuda":
+            return 0
+        forward = self._pipeline.forward
+        dd = self.model.cfg.decoder_embed_dim
+        for bk in forward_buckets(self.batch_windows):
+            windows = torch.zeros((bk, WINDOW, WINDOW, 3), device=self.device)
+            for shot in shot_nums:
+                y = torch.zeros((bk, max(shot, 1), dd), device=self.device,
+                                dtype=self.model.dec_dtype)
+                forward(windows, y)
+        return len(forward.runner)
 
     def _grid_rows(self, image: torch.Tensor) -> torch.Tensor:
         """The 9 grid crops of an [h, w, 3] image tensor, each resized back
@@ -525,3 +548,34 @@ class CountingEngine:
             if return_density and density is not None:
                 den = density[last_row][:, :last_w]
             results[i] = CountResult(pred, den, grid_flags[i], e_cnt, raw, n_win)
+
+
+def count_image(
+    engine: CountingEngine,
+    image,
+    boxes_xyxy: Sequence[Sequence[float]] = (),
+) -> CountResult:
+    """One-call counting of a RAW image (the library equivalent of the
+    reference demos' load_image + run_one_image, reference:
+    demo.py:34-189, demo_zero.py:41-88).
+
+    image: PIL.Image, path string, or HWC uint8/float array at any
+    resolution. boxes_xyxy: exemplar boxes (x1, y1, x2, y2) in ORIGINAL
+    image pixels; empty = zero-shot. Applies the test-pipeline geometry
+    (H=384, W snapped to a multiple of 16) and crops the exemplars on the
+    host with PIL and cv2, then counts with ``engine.count`` (TTN and
+    grid mode per the engine's settings).
+    """
+    from PIL import Image
+
+    from countr_tpu_torch.data import transforms as T
+
+    if isinstance(image, str):
+        image = Image.open(image)
+    if isinstance(image, np.ndarray):
+        arr = image
+        if arr.dtype != np.uint8:
+            arr = (np.clip(arr, 0.0, 1.0) * 255).astype(np.uint8)
+        image = Image.fromarray(arr)
+    resized, boxes, rects = T.prepare_raw(image, boxes_xyxy)
+    return engine.count(resized, boxes, rects, shot_num=len(rects))

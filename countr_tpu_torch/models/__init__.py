@@ -27,7 +27,7 @@ def build_countr(
     cfg = COUNTR_PRESETS[name]
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
-    if cfg.dtype == torch.float32:
+    if cfg.computes_fp32:
         disable_tf32()
     model = CounTR(cfg)
     init_countr_(model, torch.Generator().manual_seed(seed))

@@ -116,25 +116,29 @@ def _head_stage(x: torch.Tensor, stage: nn.Sequential, dtype) -> torch.Tensor:
     return F.relu(group_norm(x, gn.weight, gn.bias, gn.num_groups, gn.eps))
 
 
-def density_head(x: torch.Tensor, stages, dtype, subpixel: bool) -> torch.Tensor:
+def density_head(x: torch.Tensor, stages, dtypes, subpixel: bool) -> torch.Tensor:
     """Token grid [B, 24, 24, C] -> density [B, 384, 384]: 4x {conv3x3 +
     GroupNorm(8) + ReLU + bilinear 2x}, the 1x1 pred conv upsampled last
     (reference: models_mae_cross.py:80-100, :184-198). ``stages`` are the
-    four ``decode_head{k}`` Sequentials (conv, GN, ReLU[, pred]).
+    four ``decode_head{k}`` Sequentials (conv, GN, ReLU[, pred]);
+    ``dtypes`` the compute dtype of stage0..3 and of the pred conv with
+    the final upsample (``CounTRConfig.head_dtypes``).
 
     ``subpixel`` fuses the last 2x upsample into conv3 as a phase-space
     conv and keeps GN/ReLU/pred/final upsample in phase layout
-    (ops/subpixel.py); numerically equivalent to the reference form."""
+    (ops/subpixel.py); numerically equivalent to the reference form. It
+    runs in one dtype, ``dtypes[0]``."""
     for idx in range(3):
-        x = _head_stage(x, stages[idx], dtype)
+        x = _head_stage(x, stages[idx], dtypes[idx])
         if idx < 2 or not subpixel:
             x = upsample2x_bilinear(x)
     pred = stages[3][3]
     if not subpixel:
-        x = _head_stage(x, stages[3], dtype)
-        x = conv2d_nhwc(x, pred.weight, pred.bias, 0)
+        x = _head_stage(x, stages[3], dtypes[3])
+        x = conv2d_nhwc(x.to(dtypes[4]), pred.weight, pred.bias, 0)
         return upsample2x_bilinear(x)[..., 0]
 
+    dtype = dtypes[0]
     n, h, w, _ = x.shape
     conv3, gn3 = stages[3][0], stages[3][1]
     width = conv3.weight.shape[0]
@@ -163,7 +167,6 @@ class CounTR(nn.Module):
         enc_dt = cfg.encoder_dtype or cfg.dtype
         dec_dt = cfg.decoder_dtype or cfg.dtype
         self.enc_dtype, self.dec_dtype = enc_dt, dec_dt
-        self.head_dtype = cfg.head_dtype or cfg.dtype
         # The fast-mode kernels and tanh GELU follow the stage dtype, as
         # in the JAX package (models/countr.py:296-304).
         bf = torch.bfloat16
@@ -230,9 +233,9 @@ class CounTR(nn.Module):
         convs = [getattr(self, f"decoder_proj{k}")[0] for k in (1, 2, 3, 4)]
         return exemplar_encoder(flat, convs, self.dec_dtype).reshape(b, shot_num, dd)
 
-    def decode_tokens(self, latent: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        """Interaction decoder + density head given exemplar tokens
-        ``y`` [B, n_shot, C] -> density [B, 384, 384] fp32."""
+    def decode_grid(self, latent: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """Interaction decoder given exemplar tokens ``y`` [B, n_shot, C]
+        -> the density head's input token grid [B, 24, 24, C]."""
         x = dense(latent, self.decoder_embed, self.dec_dtype)
         x = x + self.decoder_pos_embed.to(x.dtype)
         for blk in self.decoder_blocks:
@@ -240,9 +243,19 @@ class CounTR(nn.Module):
         x = self.decoder_norm(x)
         b, _, c = x.shape
         g = self.cfg.grid_size
+        return x.reshape(b, g, g, c)
+
+    def head(self, grid: torch.Tensor, dtypes=None) -> torch.Tensor:
+        """The density head on a token grid -> density [B, 384, 384] fp32,
+        at the config's stage dtypes, or at ``dtypes`` (5 entries)."""
         stages = [getattr(self, f"decode_head{k}") for k in range(4)]
-        return density_head(x.reshape(b, g, g, c), stages, self.head_dtype,
+        return density_head(grid, stages, dtypes or self.cfg.head_dtypes,
                             self.cfg.subpixel_head).float()
+
+    def decode_tokens(self, latent: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """Interaction decoder + density head given exemplar tokens
+        ``y`` [B, n_shot, C] -> density [B, 384, 384] fp32."""
+        return self.head(self.decode_grid(latent, y))
 
     def forward_tokens(self, imgs: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """Forward with precomputed exemplar tokens (the batched-window

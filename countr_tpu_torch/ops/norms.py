@@ -1,8 +1,9 @@
 """Normalization ops on tensors, NHWC layouts (counterpart of
 ``countr_tpu/ops/norms.py``).
 
-Statistics are fp32 whatever the input dtype, normalised with
-``1 / sqrt(var + eps)``, and the result is cast back to the input dtype.
+Statistics are fp32 whatever the input dtype (float64 for a float64
+input), normalised with ``1 / sqrt(var + eps)``, and the result is cast
+back to the input dtype.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ import torch
 
 
 def _normalize(x: torch.Tensor, dims, eps: float) -> torch.Tensor:
-    x32 = x.float()
+    x32 = x.to(torch.promote_types(x.dtype, torch.float32))
     mean = x32.mean(dim=dims, keepdim=True)
     var = (x32 - mean).square().mean(dim=dims, keepdim=True)
     return (x32 - mean) * torch.reciprocal(torch.sqrt(var + eps))

@@ -1,6 +1,6 @@
 """Boundaries of the port package countr_tpu_torch: it imports neither
-JAX nor the JAX package, its entry points default to the CUDA card and
-raise without one, its stitch geometry equals the JAX package's, and no
+JAX nor the JAX package, its entry points (the CLIs' --device too)
+default to the CUDA card and raise without one, its stitch geometry equals the JAX package's, and no
 file of it calls a library attention kernel or torch.compile."""
 
 import os
@@ -53,6 +53,13 @@ def test_entry_points_default_to_cuda():
                          decoder_num_heads=2, head_width=8)
     with pytest.raises(RuntimeError, match="CUDA"):
         CountingEngine(model)
+    from countr_tpu_torch.cli import common, demo, serve, test, test_carpk
+
+    for args in (test.get_args([]), serve.get_args([]), test_carpk.get_args([]),
+                 demo.get_args(["--input_path", "x.jpg"])):
+        assert args.device == "cuda"
+        with pytest.raises(RuntimeError, match="CUDA"):
+            common.build_counting_model(args)
 
 
 def test_engine_rejects_bad_input():
