@@ -119,7 +119,26 @@ Phases, one line each on stdout:
      from a generator reseeded before it, replayed from the step's CUDA
      graph (B1 42, B3 20, B4 20, B2 0 per replay; with B2 on: B2 20, B1
      22, B3 20, B4 20), against 8 eager steps from the same start, as in
-     the train phase.
+     the train phase;
+  17. finetune_cli: countr_tpu_torch.cli.finetune on a synthetic FSC147 tree
+     (scripts/make_synthetic_fsc.py, 96 train and 16 val images, in a
+     temporary out_smoke_* directory) at the full width of
+     mae_vit_base6_patch16 in the bf16 training build, batch 8: as a
+     subprocess for 2 epochs of 12 steps (exit code, both epochs' records
+     finite, ckpt_last and ckpt_minMAE written), then --do_resume --epochs 3
+     (starts at epoch 2); then in this process, the host path and
+     --device_aug, each with its graphs captured first and the counters set
+     to 0 (B1 44, B3 18, B4 6 per train replay, B1 44, B3 18 per eval
+     replay, no eager launch, no graph captured during the epochs), the
+     loader-fed images/s of a timed epoch beside the graphed step's on a
+     batch already on the card, a profiled epoch (the device's idle share),
+     the host augmentation's ms per sample on one thread and at the
+     loader's thread count, os.cpu_count(); for --device_aug the
+     augmentation's device ms and the branchless jitter's against one
+     sequential pass of its four ops; four graphed CLI steps against four
+     eager ones (graphed=False; the same losses to the bit); a run stopped
+     after epoch 0 and resumed (--do_resume) against the uninterrupted run
+     (the same stats and weights, to the bit).
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failed check raises: nonzero
 exit code and no result line. Needs a CUDA device; uses no JAX.
@@ -1884,6 +1903,247 @@ def pretrain_phase(torch, dev, fused: bool):
     return launches
 
 
+FT_TRAIN, FT_VAL = 96, 16  # the synthetic tree of the finetune_cli phase
+FT_STEPS = 12  # --limit_steps: the steps of an epoch of the phase
+FT_TRAIN_LAUNCHES = {"B1": 44, "B2": 0, "B3": 18, "B4": 6, "B5": 0, "B6": 0}
+FT_EVAL_LAUNCHES = {"B1": 44, "B2": 0, "B3": 18, "B4": 0, "B5": 0, "B6": 0}
+
+
+def finetune_args(d: str, out: str, *extra):
+    from countr_tpu_torch.cli import finetune as cli
+
+    return cli.get_args(["--data_path", d, "--model", "mae_vit_base6_patch16", "--dtype", "bf16",
+                         "--batch_size", str(TRAIN_BATCH), "--epochs", "2", "--limit_steps",
+                         str(FT_STEPS), "--num_workers", "8", "--log_every", "0",
+                         "--output_dir", out, *extra])
+
+
+def recorded_losses(ft) -> list:
+    """Every step's loss (a device tensor) of ``ft``'s train step from
+    now on."""
+    losses, step = [], ft.train_step
+
+    def spy(batch, shot_num):
+        m = step(batch, shot_num)
+        losses.append(m["loss"])
+        return m
+
+    if hasattr(step, "runner"):
+        spy.runner = step.runner
+    ft.train_step = spy
+    return losses
+
+
+def finetune_subprocess(d: str) -> dict:
+    """The CLI as a user runs it: 2 epochs, then --do_resume --epochs 3."""
+    import os
+    import subprocess
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(d, "out_sub")
+    base = [sys.executable, "-m", "countr_tpu_torch.cli.finetune", "--data_path", d,
+            "--model", "mae_vit_base6_patch16", "--dtype", "bf16", "--batch_size",
+            str(TRAIN_BATCH), "--limit_steps", str(FT_STEPS), "--output_dir", out]
+    t0 = time.perf_counter()
+    sub = subprocess.run([*base, "--epochs", "2"], cwd=root, capture_output=True, text=True,
+                         timeout=600)
+    sub_s = time.perf_counter() - t0
+    if sub.returncode != 0:
+        raise AssertionError(f"cli.finetune exited {sub.returncode}: {sub.stderr[-3000:]}")
+    with open(os.path.join(out, "log.txt")) as f:
+        recs = [json.loads(line) for line in f]
+    numbers = [v for r in recs for k, v in r.items() if k != "epoch"]
+    kept = {k: sorted(os.listdir(os.path.join(out, k))) for k in ("ckpt_last", "ckpt_minMAE")}
+    if [r["epoch"] for r in recs] != [0, 1] or not np.all(np.isfinite(numbers)) \
+            or not all(kept.values()):
+        raise AssertionError(f"cli.finetune subprocess: records {recs}, checkpoints {kept}")
+    t0 = time.perf_counter()
+    res = subprocess.run([*base[:-4], "--limit_steps", "2", "--output_dir", out, "--epochs", "3",
+                          "--do_resume"], cwd=root, capture_output=True, text=True, timeout=600)
+    res_s = time.perf_counter() - t0
+    with open(os.path.join(out, "log.txt")) as f:
+        after = [json.loads(line) for line in f]
+    if res.returncode != 0 or "resumed epoch 2" not in res.stdout \
+            or [r["epoch"] for r in after] != [0, 1, 2]:
+        raise AssertionError(f"cli.finetune --do_resume exited {res.returncode}: "
+                             f"{res.stdout[-1500:]} {res.stderr[-1500:]}")
+    return dict(seconds=sub_s, records=recs, checkpoints=kept, resume_seconds=res_s,
+                resumed_record=after[-1])
+
+
+def host_rates(ft) -> dict:
+    """The host augmentation's ms per sample on this thread, and at the
+    loader's thread count (an epoch of the loader alone, no card)."""
+    import os
+
+    n = 16
+    t0 = time.perf_counter()
+    for i in range(n):
+        ft.train_ds[i]
+    one = (time.perf_counter() - t0) * 1e3 / n
+    t0 = time.perf_counter()
+    samples = sum(len(b["name"]) for b in ft.train_dl.epoch(100))
+    loader = (time.perf_counter() - t0) * 1e3 / samples
+    return dict(cpu_count=os.cpu_count(), loader_threads=ft.train_dl.num_workers,
+                host_ms_per_sample_1_thread=one, host_ms_per_sample_loader=loader,
+                host_samples_per_s_loader=1e3 / loader)
+
+
+def finetune_inprocess(torch, d: str, device_aug: bool):
+    """The CLI's run in this process, its graphs captured first and the
+    counters at 0: the launches per replay, no eager launch, no capture
+    during the epochs; the loader-fed rate of a timed epoch, a profiled
+    epoch, the graphed step's rate on a batch already on the card, the
+    host's rates. Returns (its stats, its losses and weights at the end
+    of the run, the graphs' launches, the line)."""
+    import random
+
+    from countr_tpu_torch.bench import events_ms
+    from countr_tpu_torch.cli import finetune as cli
+    from countr_tpu_torch.data.loader import device_prefetch
+
+    path = "device_aug" if device_aug else "host"
+    extra = ("--device_aug",) if device_aug else ()
+    t0 = time.perf_counter()
+    ft = cli.Finetune(finetune_args(d, "", *extra))  # no output: no log, no checkpoints
+    build_s = time.perf_counter() - t0
+    graphs = ft.graphs()
+    losses = recorded_losses(ft)
+    runners = {"train": ft.train_step.runner, "eval": ft.eval_step.runner}
+    reset_counts()
+    for r in runners.values():
+        r.zero_counts()
+    stats = ft.run()
+    eager = launch_counts()
+    replays = {k: r.replays for k, r in runners.items()}
+    per = {k: {n: v / max(r.replays, 1) for n, v in r.launched.items()} for k, r in runners.items()}
+    val_batches = -(-FT_VAL // TRAIN_BATCH)
+    if any(eager.values()) or ft.graphs() != graphs \
+            or runners["train"].replays != 2 * FT_STEPS or per["train"] != FT_TRAIN_LAUNCHES \
+            or runners["eval"].replays != 2 * val_batches or per["eval"] != FT_EVAL_LAUNCHES:
+        raise AssertionError(f"finetune_cli ({path}): eager launches {eager}, graphs "
+                             f"{graphs} -> {ft.graphs()}, replays {replays}, per replay {per}")
+    numbers = [v for r in stats for k, v in r.items() if k != "epoch"]
+    if not np.all(np.isfinite(numbers)):
+        raise AssertionError(f"finetune_cli ({path}): stats {stats}")
+    weights = [p.detach().clone() for p in ft.model.parameters()]  # the measurements train on
+    launches = {k: runners["train"].launched[k] + runners["eval"].launched[k]
+                for k in FT_TRAIN_LAUNCHES}
+
+    rng = random.Random(7)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr = ft.train_epoch(2, rng)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    prof = profile_run(torch, lambda: ft.train_epoch(3, rng), 1)
+    batch = next(device_prefetch(ft.train_dl.epoch(4), ft.device, ft.batch_keys))
+    step_ms = events_ms(lambda: ft.train_step(batch, 3), iters=8)
+    line = dict(path=path, graphs=graphs, capture_s=ft.capture_s, build_s=build_s,
+                epochs=stats, replays=replays,
+                launches_per_replay=per, eager_launches=eager, graphs_after=ft.graphs(),
+                timed_epoch_steps=tr["steps"], timed_epoch_s=epoch_s,
+                loader_fed_images_per_s=tr["steps"] * TRAIN_BATCH / epoch_s,
+                step_ms_on_card=step_ms, step_images_per_s_on_card=TRAIN_BATCH / step_ms * 1e3,
+                idle_share=prof["idle_share"], profile=prof, **host_rates(ft))
+    if device_aug:
+        line.update(augment_costs(torch, ft, batch))
+    ft.close()
+    return stats, losses, weights, launches, line
+
+
+def augment_costs(torch, ft, batch) -> dict:
+    """The device augmentation's ms on a loader batch (batch 8), and the
+    branchless jitter's against one sequential pass of its four ops on the
+    same images and factors: the price of the one-hot selection."""
+    from countr_tpu_torch.bench import events_ms
+    from countr_tpu_torch.ops import augment as aug
+
+    gen = torch.Generator(device=ft.device).manual_seed(5)
+    ins = [batch[k] for k in ("image_u8", "dots", "n_dots", "apply_photo")]
+    img = ins[0].float() / 255.0
+    draws = aug.draw_photometric(img.shape[0], img.shape[1], img.shape[2], gen)
+    f, perm = draws["factors"], draws["perm"]
+
+    def sequential():
+        x = img
+        for k, op in enumerate(aug.OPS):
+            x = op(x, f[:, k])
+        return x
+
+    return dict(augment_ms=events_ms(lambda: aug.augment_batch(*ins, gen), iters=10),
+                jitter_branchless_ms=events_ms(lambda: aug.color_jitter(img, f, perm), iters=10),
+                jitter_sequential_ms=events_ms(sequential, iters=10),
+                density_ms=events_ms(lambda: aug.density_from_dots(ins[1], ins[2]), iters=10),
+                blur_ms=events_ms(lambda: aug.gaussian_blur(img, draws["sigma"]), iters=10))
+
+
+def finetune_cli_phase(torch):
+    """countr_tpu_torch.cli.finetune at full width on a synthetic tree: the
+    subprocess, the in-process host and --device_aug runs, graphed against
+    eager, resumed against uninterrupted. Returns the host run's graph
+    launches."""
+    import os
+    import random
+    import subprocess
+
+    from countr_tpu_torch.cli import finetune as cli
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with smoke_dir("out_smoke_ft_") as d:
+        subprocess.run([sys.executable, os.path.join(root, "scripts", "make_synthetic_fsc.py"),
+                        "--out", d, "--n_train", str(FT_TRAIN), "--n_val", str(FT_VAL),
+                        "--n_test", "0"], check=True, capture_output=True)
+        say("finetune_cli", run="subprocess", **finetune_subprocess(d))
+
+        stats, losses, weights, launches, line = finetune_inprocess(torch, d, device_aug=False)
+        torch.cuda.empty_cache()
+        say("finetune_cli", run="in-process", **line)
+        # graphed against eager: the run's first 4 steps against 4 eager
+        # CLI steps from the same start (epoch 0's generator and shots)
+        twin = cli.Finetune(finetune_args(d, ""), graphed=False)
+        eager_losses = recorded_losses(twin)
+        twin.args.limit_steps = 4  # after the build: the schedule keeps 12 steps an epoch
+        twin.train_epoch(0, random.Random(f"{twin.args.seed}:0"))
+        twin.close()
+        graphed4 = [float(x) for x in losses[:4]]
+        eager4 = [float(x) for x in eager_losses]
+        if graphed4 != eager4:
+            raise AssertionError(f"finetune_cli: graphed losses {graphed4} against eager {eager4}")
+        del twin
+        torch.cuda.empty_cache()
+        # resumed against uninterrupted: epoch 0, save, a fresh process
+        # state resumed from ckpt_last for epoch 1
+        out = os.path.join(d, "out_split")
+        first = cli.Finetune(finetune_args(d, out))
+        head = first.run_epoch(0)
+        first.close()
+        del first
+        torch.cuda.empty_cache()
+        resumed = cli.Finetune(finetune_args(d, out, "--do_resume"))
+        tail = resumed.run()
+        drop = lambda r: {k: v for k, v in r.items() if k != "epoch_time_s"}  # noqa: E731
+        same_stats = [drop(r) for r in [head, *tail]] == [drop(r) for r in stats]
+        same_weights = all(torch.equal(p, q) for p, q in zip(resumed.model.parameters(),
+                                                               weights, strict=True))
+        if resumed.start_epoch != 1 or not same_stats or not same_weights:
+            raise AssertionError(f"finetune_cli: resumed at {resumed.start_epoch}, stats "
+                                 f"{[head, *tail]} against {stats}, weights equal "
+                                 f"{same_weights}")
+        say("finetune_cli", run="graphed_vs_eager_and_resume", graphed_losses=graphed4,
+            eager_losses=eager4, graphed_equals_eager=True, resumed_at=resumed.start_epoch,
+            resumed_equals_uninterrupted=True)
+        del resumed, weights
+        torch.cuda.empty_cache()
+
+        line = finetune_inprocess(torch, d, device_aug=True)[-1]
+        say("finetune_cli", run="in-process", **line)
+        torch.cuda.empty_cache()
+    say("finetune_cli_done", seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1943,6 +2203,7 @@ def main() -> int:
     del ref
     by_path["pretrain"] = pretrain_phase(torch, dev, fused=False)
     by_path["pretrain_b2_on"] = pretrain_phase(torch, dev, fused=True)
+    by_path["finetune_cli"] = finetune_cli_phase(torch)
 
     def entry(name, route, source, replaces, path, shapes, **extra):
         main_shape = dict(shapes[0])

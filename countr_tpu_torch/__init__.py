@@ -20,7 +20,7 @@ kernels here:
 
 Entry points (``models.build_countr``, ``models.build_mae``,
 ``engine.inference.CountingEngine``, and the CLIs under ``cli/``: test,
-serve, demo, test_carpk) run on the card unless the caller passes
+serve, demo, test_carpk, finetune) run on the card unless the caller passes
 ``device="cpu"`` (``--device cpu``).
 """
 

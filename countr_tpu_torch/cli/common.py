@@ -5,8 +5,8 @@ weight loading.
 Every entry point takes ``--device`` (default ``cuda``): without a card
 the build raises (``countr_tpu_torch.resolve_device``), and ``cpu`` runs
 on the CPU on request. The JAX package's flags for JAX machinery
-(``--debug_nans``, the compilation cache) and for W&B, which no inference
-CLI reads, are not carried.
+(``--debug_nans``, the compilation cache) and for W&B are not carried
+(ROADMAP item 9).
 """
 
 from __future__ import annotations
@@ -40,6 +40,13 @@ def add_model_args(p: argparse.ArgumentParser, default_model: str = "mae_vit_bas
                         "under an fp32 density head; mixed_fast = mixed at the JAX "
                         "package's Precision.HIGH head, which is mixed's full fp32 "
                         "head here; mixed_bal = mixed with head stages 0-2 in bf16")
+    p.add_argument("--exact_gelu", action="store_true",
+                   help="exact erf GELU even in the bf16 and mixed modes (whose fast "
+                        "path takes tanh GELU, an error below bf16 rounding)")
+    p.add_argument("--unfreeze_encoder", action="store_true",
+                   help="train the ViT encoder too (the reference freezes it under "
+                        "torch.no_grad, models_mae_cross.py:204-205; unfreezing is for "
+                        "training without a pretrained encoder)")
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--device", default="cuda", type=str,
                    help="torch device; cuda raises when no card is present, "
@@ -55,19 +62,30 @@ def load_meta(args):
     )
 
 
-def build_counting_model(args):
+def build_counting_model(args, training: bool = False):
     """Build the counting model on ``args.device`` in the ``--dtype``
     mode (``config.fast_mode_overrides``) and load weights per --resume:
     - a path ending in .pth: a reference torch checkpoint
       (``load_torch_checkpoint``, reference loader: util/misc.py:363-376);
     - a directory: the latest of the port's own checkpoints
       (``restore_params``);
-    - empty: random weights from ``--seed``."""
+    - empty: random weights from ``--seed``.
+
+    ``training=True`` (the finetune CLI) builds the model in train mode
+    with the standalone LayerNorm and attention kernels (B1, B3/B4) in
+    place of the forward-only fused half-block B2, as the JAX package's
+    training builds (countr_tpu/cli/common.py:118-150). ``--exact_gelu``
+    keeps the erf GELU; ``--unfreeze_encoder`` trains the encoder."""
     from countr_tpu_torch.engine import checkpoint as ckpt
     from countr_tpu_torch.models import build_countr
 
-    model = build_countr(args.model, device=args.device, seed=args.seed,
-                         **fast_mode_overrides(args.dtype))
+    over = fast_mode_overrides(args.dtype, training=training)
+    if getattr(args, "exact_gelu", False) and "approx_gelu" in over:
+        over["approx_gelu"] = False
+    if getattr(args, "unfreeze_encoder", False):
+        over["freeze_encoder"] = False
+    model = build_countr(args.model, device=args.device, seed=args.seed, training=training,
+                         **over)
     if args.resume.endswith(".pth"):
         ckpt.load_weights(model, ckpt.load_torch_checkpoint(args.resume))
     elif args.resume:

@@ -1,0 +1,335 @@
+"""FSC147 supervised fine-tuning of the counting decoder on the port
+(counterpart of ``countr_tpu/cli/finetune.py``).
+
+The encoder is frozen (``--unfreeze_encoder`` trains it), the loss is the
+masked MSE, each batch draws its shot number with the m_flag rule, and
+each epoch validates (MAE, RMSE, NAE) and keeps periodic, last and
+minimum-MAE checkpoints (reference: FSC_finetune_cross.py). Samples are
+augmented on the host by the loader's threads (or processes), or with
+``--device_aug`` on the card inside the step; the loader's batches are
+uploaded ahead of the step from pinned memory (``data/loader.py
+device_prefetch``). On the card every step and eval is replayed from a
+CUDA graph, all captured before the first batch.
+
+Not ported yet, and refused with the ROADMAP item: ``--resident_data``
+and ``--resident_pipeline`` (item 6), ``--n_devices`` above 1 (item 8).
+TensorBoard, the validation panels and W&B are item 9.
+
+Usage:
+  python -m countr_tpu_torch.cli.finetune --data_path ./data/FSC147 \\
+      --model mae_vit_base6_patch16 --epochs 1000 --batch_size 8 --blr 2e-4
+  (add --device cpu to run on the CPU)
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import random
+import time
+from typing import Dict, Iterator, List
+
+import numpy as np
+import torch
+
+from countr_tpu_torch.cli import common
+from countr_tpu_torch.config import TrainConfig
+from countr_tpu_torch.utils.metrics import JsonlLogger
+
+
+def get_args(argv=None):
+    p = argparse.ArgumentParser("FSC147 fine-tuning")
+    common.add_data_args(p)
+    common.add_model_args(p, default_model="mae_vit_base6_patch16")
+    p.add_argument("--batch_size", default=8, type=int)
+    p.add_argument("--epochs", default=1000, type=int)
+    p.add_argument("--warmup_epochs", default=10, type=int)
+    p.add_argument("--blr", default=2e-4, type=float, help="base lr; lr = blr * batch / 256")
+    p.add_argument("--lr", default=None, type=float)
+    p.add_argument("--min_lr", default=0.0, type=float)
+    p.add_argument("--weight_decay", default=0.05, type=float)
+    p.add_argument("--accum_iter", default=1, type=int)
+    p.add_argument("--no_aug", action="store_true", help="disable train-time augmentation")
+    p.add_argument("--device_aug", action="store_true",
+                   help="run the photometric augmentation and the density synthesis on "
+                        "the card inside the train step (uint8 geometry on the host; a "
+                        "quarter of the upload; see countr_tpu_torch.ops.augment)")
+    p.add_argument("--resident_data", action="store_true",
+                   help="the decoded train split resident on the card; not ported yet "
+                        "(ROADMAP item 6)")
+    p.add_argument("--resident_pipeline", action="store_true",
+                   help="the resident mode as two dispatches per step; not ported yet "
+                        "(ROADMAP item 6)")
+    p.add_argument("--num_workers", default=8, type=int)
+    p.add_argument("--use_processes", action="store_true",
+                   help="process-pool data workers (GIL-free augmentation on many-core hosts)")
+    p.add_argument("--ckpt_every", default=50, type=int)
+    p.add_argument("--ckpt_last_every", default=1, type=int,
+                   help="epochs between crash-resume 'last' checkpoints (the reference "
+                        "saves every epoch)")
+    p.add_argument("--do_resume", action="store_true",
+                   help="resume the full training state from output_dir/ckpt_last")
+    p.add_argument("--init_from_mae", default="", type=str,
+                   help="MAE pretrain checkpoint to initialise the encoder from: a reference "
+                        ".pth, or a directory of the port's checkpoints")
+    p.add_argument("--limit_steps", default=0, type=int, help="cap steps/epoch (smoke tests)")
+    p.add_argument("--n_devices", default=0, type=int,
+                   help="devices to train on; the port trains on one (0 or 1), more is "
+                        "not ported yet (ROADMAP item 8)")
+    p.add_argument("--log_every", default=50, type=int,
+                   help="steps between printed train loss / lr lines (0 = per epoch only; "
+                        "reference: FSC_finetune_cross.py:320-326)")
+    return p.parse_args(argv)
+
+
+def sample_shot_num(rng: random.Random, m_flags: np.ndarray) -> int:
+    """0-3 shots, but a Type-2 mosaic in the batch bans 0-shot
+    (reference: FSC_finetune_cross.py:277-284)."""
+    return rng.randint(1 if np.any(m_flags) else 0, 3)
+
+
+def epoch_seed(seed: int, epoch: int) -> int:
+    """The seed of the step's generator (the augmentation's factors and
+    the loss masks) for ``epoch``: a run resumed at epoch N draws what the
+    uninterrupted run draws there."""
+    return int(np.random.SeedSequence([seed, epoch]).generate_state(1, np.uint64)[0]) >> 1
+
+
+def refuse_unported(args) -> None:
+    if getattr(args, "resident_data", False) or getattr(args, "resident_pipeline", False):
+        raise ValueError("--resident_data / --resident_pipeline: the resident data stores "
+                         "are not ported yet (ROADMAP item 6)")
+    if getattr(args, "n_devices", 0) > 1:
+        raise ValueError(f"--n_devices {args.n_devices}: the port trains on one device; "
+                         "data parallelism is not ported yet (ROADMAP item 8)")
+
+
+def init_encoder(model, path: str) -> None:
+    """Load the ViT encoder (patch_embed, blocks, norm) of an MAE
+    checkpoint into ``model``: a reference ``.pth`` (the layout of
+    ``mae_state_dict_from_flax``), or a directory of the port's
+    checkpoints (the latest step). The reference's non-strict load of the
+    pretrain checkpoint (util/misc.py:363-376)."""
+    from countr_tpu_torch.engine import checkpoint as ckpt
+    from countr_tpu_torch.engine.train import transfer_encoder
+
+    sd = ckpt.load_torch_checkpoint(path) if path.endswith(".pth") else ckpt.restore_params(path)
+    ckpt.load_weights(model, transfer_encoder(sd, model.state_dict(), depth=model.cfg.depth))
+
+
+def _zeros(shape, dtype, device) -> torch.Tensor:
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+class Finetune:
+    """The CLI's run: the model, the training state, the loaders and the
+    steps, built by ``__init__`` (on the card every graph is captured
+    there, before any batch), and ``run()``, the epochs. ``graphed``:
+    None = CUDA graphs on the card; False = eager steps."""
+
+    def __init__(self, args, graphed=None):
+        from countr_tpu_torch.data.fsc147 import TrainDataset, ValDataset
+        from countr_tpu_torch.data.loader import DataLoader
+        from countr_tpu_torch.engine import checkpoint as ckpt
+        from countr_tpu_torch.engine import train as engine
+
+        refuse_unported(args)
+        self.args = args
+        meta = common.load_meta(args)
+        self.model = model = common.build_counting_model(args, training=True)
+        self.device = next(model.parameters()).device
+        if args.init_from_mae:
+            init_encoder(model, args.init_from_mae)
+            print(f"initialized encoder from {args.init_from_mae}")
+        self.outdir = common.ensure_outdir(args)
+        self.jsonl = JsonlLogger(self.outdir)
+        self.device_aug = args.device_aug and not args.no_aug
+
+        self.train_ds = TrainDataset(meta, do_aug=not args.no_aug, seed=args.seed,
+                                     device_aug=self.device_aug)
+        self.val_ds = ValDataset(meta)
+        self.train_dl = DataLoader(self.train_ds, args.batch_size, shuffle=True,
+                                   num_workers=args.num_workers, drop_last=True, seed=args.seed,
+                                   use_processes=args.use_processes)
+        self.val_dl = DataLoader(self.val_ds, args.batch_size, num_workers=args.num_workers)
+        self.steps_per_epoch = len(self.train_dl)
+        if args.limit_steps:
+            self.steps_per_epoch = min(self.steps_per_epoch, args.limit_steps)
+
+        self.tcfg = TrainConfig(
+            batch_size=args.batch_size, epochs=args.epochs, warmup_epochs=args.warmup_epochs,
+            blr=args.blr, lr=args.lr, min_lr=args.min_lr, weight_decay=args.weight_decay,
+            accum_iter=args.accum_iter, seed=args.seed, output_dir=args.output_dir,
+        )
+        self.state = engine.init_train_state(
+            model, self.tcfg, self.steps_per_epoch,
+            args.batch_size * args.accum_iter)  # the effective batch scales blr
+        self.generator = torch.Generator(device=self.device)
+        self.train_step = engine.make_finetune_step(
+            self.state, self.tcfg, self.generator, graphed=graphed, device_aug=self.device_aug)
+        self.eval_step = engine.make_eval_step(model, graphed=graphed)
+        self.batch_keys = engine.DEVICE_AUG_KEYS if self.device_aug else engine.FINETUNE_KEYS
+        self.capture_s = self._capture() if hasattr(self.train_step, "capture") else 0.0
+
+        self.start_epoch = 0
+        if args.do_resume and self.outdir:
+            last_dir = os.path.join(self.outdir, "ckpt_last")
+            if ckpt.latest_step(last_dir) is not None:
+                self.start_epoch = ckpt.restore_checkpoint(last_dir, self.state) + 1
+                print(f"resumed epoch {self.start_epoch} from {last_dir}")
+        self.min_mae = float("inf")
+
+    def _capture(self) -> float:
+        """Capture the train step's graphs for every reachable shot (its
+        accumulate and update pair under accumulation) and the eval
+        step's for shots 0-3 at the padded validation batch, on zero
+        batches of the loader's shapes and dtypes; returns seconds."""
+        t0 = time.perf_counter()
+        b, hw, dev = self.args.batch_size, self.model.cfg.img_size, self.device
+        boxes = _zeros((b, 3, 64, 64, 3), torch.float32, dev)
+        if self.device_aug:
+            from countr_tpu_torch.data.fsc147 import TrainDataset
+
+            batch = {"image_u8": _zeros((b, hw, hw, 3), torch.uint8, dev),
+                     "dots": _zeros((b, TrainDataset.MAX_DEVICE_DOTS, 2), torch.int16, dev),
+                     "n_dots": _zeros((b,), torch.int32, dev),
+                     "apply_photo": _zeros((b,), torch.float32, dev), "boxes": boxes}
+        else:
+            batch = {"image": _zeros((b, hw, hw, 3), torch.float32, dev),
+                     "gt_density": _zeros((b, hw, hw), torch.float32, dev), "boxes": boxes}
+        val = {"image": _zeros((b, hw, hw, 3), torch.float32, dev),
+               "gt_density": _zeros((b, hw, hw), torch.float32, dev), "boxes": boxes,
+               "valid": _zeros((b,), torch.float32, dev)}
+        for shot in range(4):
+            self.train_step.capture(batch, shot)
+            self.eval_step.capture(val, shot)
+        torch.cuda.synchronize(dev)
+        return time.perf_counter() - t0
+
+    def graphs(self) -> int:
+        """The CUDA graphs captured so far (0 for eager steps)."""
+        return sum(len(f.runner) for f in (self.train_step, self.eval_step)
+                   if hasattr(f, "runner"))
+
+    def _val_batches(self) -> Iterator[Dict]:
+        """The validation batches padded to the full batch by repeating
+        the last sample, with ``valid`` 0 on the padding."""
+        b = self.args.batch_size
+        for batch in self.val_dl.epoch(0):
+            n = batch["image"].shape[0]
+            out = {k: np.concatenate([batch[k], batch[k][-1:].repeat(b - n, 0)])
+                   for k in ("image", "gt_density", "boxes")}
+            out["valid"] = np.concatenate([np.ones(n, np.float32), np.zeros(b - n, np.float32)])
+            yield out
+
+    def train_epoch(self, epoch: int, py_rng: random.Random) -> Dict:
+        """One epoch of steps on the loader's batches; returns the host
+        sums of the metrics and the number of steps."""
+        from countr_tpu_torch.data.loader import device_prefetch
+
+        args = self.args
+        self.generator.manual_seed(epoch_seed(args.seed, epoch))
+        totals, n_steps = None, 0
+        for batch in device_prefetch(self.train_dl.epoch(epoch), self.device, self.batch_keys):
+            if args.limit_steps and n_steps >= args.limit_steps:
+                break
+            shot_num = sample_shot_num(py_rng, batch["m_flag"])
+            m = self.train_step(batch, shot_num)
+            totals = m if totals is None else {k: totals[k] + m[k] for k in totals}
+            n_steps += 1
+            if n_steps % 32 == 0 and not torch.isfinite(totals["loss"]):
+                # the running sum catches a NaN of any step in the window
+                raise SystemExit(f"Loss is not finite at epoch {epoch}")
+            if args.log_every and n_steps % args.log_every == 0:
+                gstep = epoch * self.steps_per_epoch + n_steps
+                print(f"[Epoch {epoch} step {n_steps}] loss {float(m['loss']):.4f} "
+                      f"lr {self.state.schedule(gstep):.3e}", flush=True)
+        sums = {k: float(v) for k, v in totals.items()} if totals else {}
+        return {"loss": sums.get("loss", 0.0), "mae": sums.get("mae", 0.0),
+                "mse": sums.get("mse", 0.0), "steps": n_steps}
+
+    def validate(self, py_rng: random.Random) -> Dict:
+        """The validation split (reference: FSC_finetune_cross.py:328-350):
+        error sums over the real samples."""
+        from countr_tpu_torch.data.loader import device_prefetch
+
+        v = {"err_sum": 0.0, "sq_sum": 0.0, "nae_sum": 0.0, "n": 0.0}
+        for batch in device_prefetch(self._val_batches(), self.device):
+            em = self.eval_step(batch, py_rng.randint(0, 3))
+            for k in v:
+                v[k] += float(em[k])
+        return v
+
+    def run_epoch(self, epoch: int) -> Dict:
+        """Train, validate, log and keep checkpoints for ``epoch``;
+        returns its stats."""
+        t0 = time.time()
+        # A per-epoch seeded shot-number stream (train and val draws): a
+        # --do_resume run at epoch N draws what an uninterrupted run draws
+        # at epoch N, as the step's generator (epoch_seed) does.
+        py_rng = random.Random(f"{self.args.seed}:{epoch}")
+        tr = self.train_epoch(epoch, py_rng)
+        if not np.isfinite(tr["loss"]):
+            raise SystemExit(f"Loss is not finite at epoch {epoch}")
+        v = self.validate(py_rng)
+        n, vn = max(tr["steps"], 1), max(v["n"], 1)
+        val_mae = v["err_sum"] / vn
+        stats = {
+            "epoch": epoch,
+            "train/loss": tr["loss"] / n,
+            "train/MAE": tr["mae"] / n,
+            "train/RMSE": (tr["mse"] / n) ** 0.5,
+            "val/MAE": val_mae,
+            "val/RMSE": (v["sq_sum"] / vn) ** 0.5,
+            "val/NAE": v["nae_sum"] / vn,
+            "lr": float(self.state.schedule(epoch * self.steps_per_epoch)),
+            "epoch_time_s": time.time() - t0,
+        }
+        print(f"[Epoch {epoch}] loss {stats['train/loss']:.4f} train MAE "
+              f"{stats['train/MAE']:.2f} val MAE {val_mae:.2f} val RMSE "
+              f"{stats['val/RMSE']:.2f} ({stats['epoch_time_s']:.1f}s)", flush=True)
+        self.jsonl.write(stats)
+        self._keep(epoch, val_mae)
+        return stats
+
+    def _keep(self, epoch: int, val_mae: float) -> None:
+        """Periodic, last and minimum-MAE checkpoints (reference:
+        FSC_finetune_cross.py:407-420)."""
+        from countr_tpu_torch.engine import checkpoint as ckpt
+
+        if not self.outdir:
+            return
+        args = self.args
+        if args.ckpt_every and epoch % args.ckpt_every == 0 and epoch != 0:
+            ckpt.save_checkpoint(os.path.join(self.outdir, "ckpt_periodic"), epoch, self.state,
+                                 keep=5)
+        if epoch % max(1, args.ckpt_last_every) == 0 or epoch + 1 == args.epochs:
+            ckpt.save_checkpoint(os.path.join(self.outdir, "ckpt_last"), epoch, self.state,
+                                 keep=1)
+        if val_mae < self.min_mae:
+            self.min_mae = val_mae
+            ckpt.save_checkpoint(os.path.join(self.outdir, "ckpt_minMAE"), epoch, self.state,
+                                 keep=1)
+
+    def run(self) -> List[Dict]:
+        try:
+            return [self.run_epoch(e) for e in range(self.start_epoch, self.args.epochs)]
+        finally:
+            self.close()
+
+    def close(self) -> None:
+        self.train_dl.close()
+        self.val_dl.close()
+
+
+def main(args, graphed=None) -> List[Dict]:
+    """Fine-tune per ``args``; returns each epoch's stats."""
+    return Finetune(args, graphed=graphed).run()
+
+
+def _entry():
+    main(get_args())
+
+
+if __name__ == "__main__":
+    _entry()

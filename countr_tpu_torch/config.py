@@ -20,6 +20,7 @@ DENSITY_SCALE = 60.0
 IMG_SIZE = 384
 PATCH_SIZE = 16
 EXEMPLAR_SIZE = 64
+MAX_SHOTS = 3  # exemplar slots of a training sample
 
 # Sliding-window inference geometry (reference:
 # FSC_test_cross(few-shot).py:294-349).

@@ -14,9 +14,10 @@ and every buffer a step writes, allocated once and updated in place; a
 step returns the metrics. On a CUDA device each step is replayed from a
 CUDA graph (``engine/graphs.py``), one per input shape, ``shot_num`` and,
 under accumulation, kind of mini-step: the counterpart of ``jax.jit``.
-On the CPU, or with ``graphed=False``, the same step runs eagerly. The
-resident-store steps and the in-step device augmentation are not ported
-yet.
+On the CPU, or with ``graphed=False``, the same step runs eagerly. With
+``device_aug`` the finetune step runs the photometric augmentation and the
+density synthesis itself (``ops/augment.py``), inside its graph. The
+resident-store steps are not ported yet.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from torch import nn
 from countr_tpu_torch.config import DENSITY_SCALE, TrainConfig
 from countr_tpu_torch.engine.schedule import warmup_cosine
 from countr_tpu_torch.models.vit import casts_at_use
+from countr_tpu_torch.ops.augment import augment_batch
 
 
 def decay_mask(model: nn.Module) -> Dict[str, bool]:
@@ -313,31 +315,46 @@ def loss_mask(hw: int, p: float, generator: torch.Generator) -> torch.Tensor:
     return torch.rand((hw, hw), generator=generator, device=generator.device) < p
 
 
+FINETUNE_KEYS = ("image", "gt_density", "boxes")
+DEVICE_AUG_KEYS = ("image_u8", "dots", "n_dots", "apply_photo", "boxes")
+
+
 def make_finetune_step(
     state: TrainState, cfg: TrainConfig, generator: torch.Generator | None = None,
-    graphed: bool | None = None,
+    graphed: bool | None = None, device_aug: bool = False,
 ) -> Callable[[Mapping[str, torch.Tensor], int], Dict]:
     """Returns step(batch, shot_num) -> metrics, updating ``state``.
 
     batch: {'image' [B,384,384,3], 'gt_density' [B,384,384], 'boxes'
-    [B,3,64,64,3]} on the model's device. The loss mask is drawn from
-    ``generator`` (default: one on the model's device seeded with
-    ``cfg.seed``) inside the step. On a CUDA device (``graphed`` None or
-    True) the step is replayed from a CUDA graph per batch shape,
-    ``shot_num`` and kind of mini-step; ``step.capture(batch, shot_num)``
-    captures a shot's graphs ahead, ``step.runner`` counts the replays.
+    [B,3,64,64,3]} on the model's device (``FINETUNE_KEYS``). With
+    ``device_aug`` it is the host-geometry sample instead
+    (``DEVICE_AUG_KEYS``: 'image_u8' uint8, 'dots' [B,K,2], 'n_dots',
+    'apply_photo', 'boxes'), and the step first runs
+    ``ops.augment.augment_batch`` (the counterpart of the JAX step's
+    ``device_aug``). The augmentation's factors and then the loss mask
+    are drawn from ``generator`` (default: one on the model's device
+    seeded with ``cfg.seed``) inside the step. On a CUDA device
+    (``graphed`` None or True) the step is replayed from a CUDA graph per
+    batch shape, ``shot_num`` and kind of mini-step, the generator
+    registered with each; ``step.capture(batch, shot_num)`` captures a
+    shot's graphs ahead, ``step.runner`` counts the replays.
     ``graphed=False`` runs the same step eagerly, as on the CPU."""
     gen = generator
     if gen is None:
         gen = torch.Generator(device=state.device).manual_seed(cfg.seed)
     hw = state.model.cfg.img_size
+    keys = DEVICE_AUG_KEYS if device_aug else FINETUNE_KEYS
 
-    def device_step(imgs, gt, boxes, *, shot_num: int, update: bool) -> Dict:
+    def device_step(*ins, shot_num: int, update: bool) -> Dict:
+        if device_aug:
+            imgs, gt = augment_batch(*ins[:4], gen)
+        else:
+            imgs, gt = ins[0], ins[1].float()
         mask = loss_mask(hw, cfg.loss_mask_p, gen)
-        return _finetune_device(state, imgs, gt.float(), boxes, shot_num, mask, update)
+        return _finetune_device(state, imgs, gt, ins[-1], shot_num, mask, update)
 
     def inputs(batch, shot_num):
-        return batch["image"], batch["gt_density"], batch["boxes"]
+        return tuple(batch[k] for k in keys)
 
     if _resolve_graphed(state.device, graphed):
         return _graphed_train_step(
@@ -358,7 +375,8 @@ def make_eval_step(model: nn.Module, graphed: bool | None = None):
     ``sq_sum``, ``nae_sum`` and ``n`` (reference val loop:
     FSC_finetune_cross.py:328-350); ``batch["valid"]`` masks padding
     samples. On a CUDA device (``graphed`` None or True) it is replayed
-    from a CUDA graph per batch shape and ``shot_num``, with the bf16
+    from a CUDA graph per batch shape and ``shot_num`` (``eval.capture(batch,
+    shot_num)`` captures one ahead, ``eval.runner`` counts), with the bf16
     casts of the weights inside the graph, so that the graph stays valid
     while training changes the weights; ``graphed=False`` runs it
     eagerly, as on the CPU."""
@@ -388,13 +406,22 @@ def make_eval_step(model: nn.Module, graphed: bool | None = None):
 
     runner = GraphRunner(dev)
 
+    def graph(batch, shot_num: int):
+        ins = inputs(batch)
+        return (shot_num, _shapes(*ins)), functools.partial(device_eval, shot_num=shot_num), ins
+
     @torch.inference_mode()
     def eval_fn(batch, shot_num: int) -> Dict:
-        ins = inputs(batch)
-        return _replay(runner, (shot_num, _shapes(*ins)),
-                       functools.partial(device_eval, shot_num=shot_num), *ins)
+        key, fn, ins = graph(batch, shot_num)
+        return _replay(runner, key, fn, *ins)
 
-    eval_fn.runner = runner
+    @torch.inference_mode()
+    def capture(batch, shot_num: int) -> None:
+        key, fn, ins = graph(batch, shot_num)
+        with casts_at_use():
+            runner.capture(key, fn, *ins)
+
+    eval_fn.runner, eval_fn.capture = runner, capture
     return eval_fn
 
 

@@ -27,7 +27,9 @@ def _modules():
 
 def test_imports_no_jax():
     mods = _modules()
-    assert "countr_tpu_torch.engine.inference" in mods
+    for m in ("engine.inference", "native", "data.imcache", "data.loader", "data.fsc147",
+              "ops.augment", "cli.finetune"):
+        assert f"countr_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -53,13 +55,15 @@ def test_entry_points_default_to_cuda():
                          decoder_num_heads=2, head_width=8)
     with pytest.raises(RuntimeError, match="CUDA"):
         CountingEngine(model)
-    from countr_tpu_torch.cli import common, demo, serve, test, test_carpk
+    from countr_tpu_torch.cli import common, demo, finetune, serve, test, test_carpk
 
     for args in (test.get_args([]), serve.get_args([]), test_carpk.get_args([]),
-                 demo.get_args(["--input_path", "x.jpg"])):
+                 demo.get_args(["--input_path", "x.jpg"]), finetune.get_args([])):
         assert args.device == "cuda"
         with pytest.raises(RuntimeError, match="CUDA"):
             common.build_counting_model(args)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        common.build_counting_model(finetune.get_args([]), training=True)
 
 
 def test_engine_rejects_bad_input():

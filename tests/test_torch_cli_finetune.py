@@ -1,0 +1,196 @@
+"""The port's finetune CLI (countr_tpu_torch/cli/finetune.py, device cpu)
+against the JAX package's (countr_tpu/cli/finetune.py) on the 6-image tree
+of tests/test_data.py::fsc_dir: the tiny ``tiny384`` preset registered in
+both preset tables, fp32, both sides starting from one reference-format
+``.pth`` that the JAX package writes from its parameters through the
+weight bridge.
+
+The loss mask is the one random draw the two packages cannot share (a
+``jax.random`` key there, a torch generator here), so these comparisons
+set ``loss_mask_p`` to 1.0 on both sides, in this file only, through the
+CLIs' TrainConfig; the program keeps the reference's 0.8.
+
+- With augmentation on and off, 2 epochs of ``--limit_steps 2`` at the
+  CLI's own learning rate (blr 2e-4 scaled by the batch): the
+  per-epoch train/loss, train/MAE, val/MAE and val/RMSE within rel 1e-5,
+  the tolerance tests/test_torch_train.py holds the 3-step trajectory to
+  (the samples, the order and the shot draws are equal bit for bit).
+- The retention directories (periodic, last, minMAE).
+- ``--do_resume`` from epoch 2 equals the uninterrupted run bit for bit,
+  port against port, at the program's own loss_mask_p.
+- ``--init_from_mae`` from a ``.pth`` gives JAX's encoder.
+- ``--resident_data``, ``--resident_pipeline`` and ``--n_devices 2``
+  raise, naming their ROADMAP item.
+"""
+
+import argparse
+import functools
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from countr_tpu import config as jcfg
+from countr_tpu.cli import finetune as jft
+from countr_tpu.engine import checkpoint as jckpt
+from countr_tpu.engine import train as jtrain
+from countr_tpu_torch import config as tcfg
+from countr_tpu_torch.cli import finetune as tft
+from countr_tpu_torch.engine.checkpoint import mae_state_dict_from_flax, state_dict_from_flax
+from tests.test_data import fsc_dir  # noqa: F401  (fixture)
+from tests.torch_port_helpers import jax_model
+
+TINY384 = dict(img_size=384, patch_size=16, embed_dim=32, depth=1, num_heads=2,
+               decoder_embed_dim=32, decoder_depth=1, decoder_num_heads=2, head_width=32)
+REL = 1e-5  # tests/test_torch_train.py: loss and metrics, relative
+COMPARED = ("train/loss", "train/MAE", "val/MAE", "val/RMSE")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def tiny_preset():
+    jcfg.COUNTR_PRESETS["tiny384"] = jcfg.CounTRConfig(**TINY384)
+    tcfg.COUNTR_PRESETS["tiny384"] = tcfg.CounTRConfig(**TINY384)
+    yield
+    jcfg.COUNTR_PRESETS.pop("tiny384", None)
+    tcfg.COUNTR_PRESETS.pop("tiny384", None)
+
+
+@pytest.fixture(scope="module")
+def pth(tmp_path_factory):
+    _, params = jax_model(seed=7, **TINY384)
+    path = str(tmp_path_factory.mktemp("weights") / "tiny384.pth")
+    jckpt.save_torch_checkpoint(path, jckpt.export_countr_state_dict(params))
+    return path
+
+
+@pytest.fixture
+def full_mask(monkeypatch):
+    """loss_mask_p 1.0 in both CLIs' TrainConfig (this file only)."""
+    monkeypatch.setattr(jft, "TrainConfig", functools.partial(jcfg.TrainConfig, loss_mask_p=1.0))
+    monkeypatch.setattr(tft, "TrainConfig", functools.partial(tcfg.TrainConfig, loss_mask_p=1.0))
+
+
+def port_argv(tree, pth, out, *extra):
+    return ["--data_path", tree, "--model", "tiny384", "--resume", pth, "--dtype", "fp32",
+            "--device", "cpu", "--batch_size", "2", "--epochs", "2", "--warmup_epochs", "0",
+            "--limit_steps", "2", "--num_workers", "2", "--ckpt_every", "1",
+            "--log_every", "1", "--output_dir", out, *extra]
+
+
+def jax_args(tree, pth, out, no_aug):
+    return argparse.Namespace(
+        data_path=tree, anno_file="annotation_FSC147_384.json",
+        data_split_file="Train_Test_Val_FSC_147.json", im_dir="images_384_VarV2",
+        class_file="ImageClasses_FSC147.txt", output_dir=out, model="tiny384", resume=pth,
+        dtype="fp32", seed=0, batch_size=2, epochs=2, warmup_epochs=0, blr=2e-4, lr=None,
+        min_lr=0.0, weight_decay=0.05, accum_iter=1, no_aug=no_aug, num_workers=2,
+        ckpt_every=0, do_resume=False, init_from_mae="", limit_steps=2, n_devices=1,
+        panel_every=0, log_every=0)
+
+
+def read_log(out):
+    import json
+
+    with open(os.path.join(out, "log.txt")) as f:
+        return [json.loads(line) for line in f]
+
+
+@pytest.mark.parametrize("no_aug", [False, True], ids=["aug", "no_aug"])
+def test_cli_matches_jax(fsc_dir, pth, tmp_path, full_mask, no_aug):  # noqa: F811
+    jout, tout = str(tmp_path / "j"), str(tmp_path / "t")
+    jft.main(jax_args(fsc_dir, pth, jout, no_aug))
+    want = read_log(jout)
+    got = tft.main(tft.get_args(port_argv(fsc_dir, pth, tout, *(["--no_aug"] * no_aug))))
+    assert got == read_log(tout)
+    assert [s["epoch"] for s in got] == [s["epoch"] for s in want] == [0, 1]
+    for g, w in zip(got, want):
+        for k in COMPARED:
+            assert g[k] == pytest.approx(w[k], rel=REL), (g["epoch"], k, g[k], w[k])
+        assert g["lr"] == pytest.approx(w["lr"], rel=1e-6)
+    assert got[1]["train/loss"] != got[0]["train/loss"]
+    for d in ("ckpt_periodic", "ckpt_last", "ckpt_minMAE"):
+        assert os.listdir(os.path.join(tout, d)), d
+    assert os.listdir(os.path.join(tout, "ckpt_periodic")) == ["checkpoint-1.pth"]
+
+
+def _stats(stats):
+    return [{k: v for k, v in s.items() if k != "epoch_time_s"} for s in stats]
+
+
+@pytest.mark.parametrize("extra", [(), ("--device_aug",)], ids=["host_aug", "device_aug"])
+def test_resume_equals_uninterrupted(fsc_dir, pth, tmp_path, extra):  # noqa: F811
+    """Epochs 0-1, then a --do_resume run for epoch 2, against the same 3
+    epochs in one run: the same stats and weights, bit for bit (the step's
+    generator is seeded per epoch, the shot stream per epoch)."""
+    def argv(out, *more):
+        return tft.get_args(port_argv(fsc_dir, pth, str(tmp_path / out), "--epochs", "3",
+                                      *extra, *more))
+
+    whole = tft.Finetune(argv("whole"))
+    want = _stats(whole.run())
+    first = tft.Finetune(argv("split"))
+    try:
+        head = [first.run_epoch(e) for e in (0, 1)]
+    finally:
+        first.close()
+    resumed = tft.Finetune(argv("split", "--do_resume"))
+    assert resumed.start_epoch == 2
+    tail = resumed.run()
+    assert _stats(head + tail) == want
+    for p, q in zip(resumed.model.parameters(), whole.model.parameters()):
+        assert torch.equal(p, q)
+
+
+@pytest.mark.parametrize("source", ["pth", "port_dir"])
+def test_init_from_mae_gives_jax_encoder(fsc_dir, pth, tmp_path, source):  # noqa: F811
+    """A reference MAE ``.pth`` (JAX's route: convert_mae_state_dict and
+    transfer_encoder), and the same weights saved as the port's own
+    checkpoint directory."""
+    import jax.numpy as jnp
+
+    from countr_tpu.config import MAEConfig
+    from countr_tpu.models.mae import MaskedAutoencoderViT
+    from countr_tpu_torch.engine.checkpoint import load_weights, save_checkpoint
+    from countr_tpu_torch.models import build_mae
+
+    tiny_mae = dict(img_size=384, patch_size=16, embed_dim=32, depth=1, num_heads=2,
+                    decoder_embed_dim=32, decoder_depth=1, decoder_num_heads=2)
+    mae = MaskedAutoencoderViT(MAEConfig(**tiny_mae))
+    mae_params = mae.init(jax.random.key(3), jnp.zeros((1, 384, 384, 3)), jax.random.key(4))
+    mae_sd = mae_state_dict_from_flax(jax.tree.map(np.asarray, mae_params))
+    mae_pth = str(tmp_path / "mae.pth")
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in mae_sd.items()}}, mae_pth)
+    init_from = mae_pth
+    if source == "port_dir":
+        port_mae = build_mae("mae_vit_base_patch16", dtype="fp32", device="cpu", **tiny_mae)
+        load_weights(port_mae, mae_sd)
+        init_from = str(tmp_path / "mae_ckpt")
+        save_checkpoint(init_from, 0, port_mae)
+
+    # JAX's path: the .pth through convert_mae_state_dict and transfer_encoder
+    countr = jckpt.convert_countr_state_dict(jckpt.load_torch_checkpoint(pth), depth=1,
+                                             decoder_depth=1)
+    mae_flax = jckpt.convert_mae_state_dict(jckpt.load_torch_checkpoint(mae_pth), depth=1,
+                                            decoder_depth=1)
+    want = state_dict_from_flax(jax.tree.map(np.asarray,
+                                             jtrain.transfer_encoder(mae_flax, countr, depth=1)))
+    ft = tft.Finetune(tft.get_args(port_argv(fsc_dir, pth, str(tmp_path / "o"),
+                                             "--init_from_mae", init_from)))
+    ft.close()
+    got = ft.model.state_dict()
+    assert set(got) == set(want)
+    for k, v in got.items():
+        np.testing.assert_array_equal(v.numpy(), want[k], err_msg=k)
+    assert not np.array_equal(got["blocks.0.attn.qkv.weight"].numpy(),
+                              state_dict_from_flax(jax.tree.map(np.asarray, countr))[
+                                  "blocks.0.attn.qkv.weight"])
+
+
+@pytest.mark.parametrize("flag,item", [(("--resident_data",), "item 6"),
+                                       (("--resident_pipeline",), "item 6"),
+                                       (("--n_devices", "2"), "item 8")])
+def test_unported_flags_raise(fsc_dir, pth, tmp_path, flag, item):  # noqa: F811
+    with pytest.raises(ValueError, match=item):
+        tft.main(tft.get_args(port_argv(fsc_dir, pth, str(tmp_path / "o"), *flag)))

@@ -1,7 +1,6 @@
 """The port's host-side data path and outputs against the JAX package's:
-transforms (the same PIL and cv2 calls: bitwise), density_from_dots (the
-port takes scipy's formulation, the JAX package may take its native
-splat: within 1e-5), FSC147Meta and TestDataset items, plain, capped and
+transforms (the same PIL and cv2 calls: bitwise), density_from_dots (both
+take the native splat, or scipy's filter on request: within 1e-5), FSC147Meta and TestDataset items, plain, capped and
 external (bitwise), and the metrics and visual outputs of the CLIs."""
 
 import json
