@@ -138,7 +138,29 @@ Phases, one line each on stdout:
      sequential pass of its four ops; four graphed CLI steps against four
      eager ones (graphed=False; the same losses to the bit); a run stopped
      after epoch 0 and resumed (--do_resume) against the uninterrupted run
-     (the same stats and weights, to the bit).
+     (the same stats and weights, to the bit);
+  18. resident_cli: the same CLI with --resident_data on the same tree
+     (the train and validation splits resident on the card,
+     engine/train_store.py), in this process, graphs captured first: B1 44,
+     B3 18, B4 6 per train replay, B1 44, B3 18 per eval replay, no eager
+     launch, no capture during the epochs; loader-fed images/s, the idle
+     share of a profiled epoch, the graphed step's ms on a batch already on
+     the card, the materialisation's ms alone (graphed, bitwise against
+     eager; the pixels alone, eager), the host's ms per sample of
+     _store_item (one thread, the loader's 8), the stores' bytes; four
+     graphed steps against four eager ones, a resumed run against the
+     uninterrupted one, then --resident_pipeline (its materialise, pipelined
+     and train-phase graphs: 0, and 44 / 18 / 6 per replay) against the
+     serial run, each to the bit, with its step ms beside the serial one's;
+  19. store_pool: materialize_batch alone on a pool of FSC147's size made
+     on the card (3659 random images at 384x512, ~2.2 GB uint8), batches of
+     8 with 2 mosaics, eager and graph-replayed ms beside the bytes bound;
+  20. carpk_cli: countr_tpu_torch.cli.finetune_carpk on a local CARPK tree
+     of 8 PNGs at 720x1280, batch 1, on the host path and with
+     --resident_data (engine/carpk_store.py): B1 44, B3 18, B4 6 per
+     replay, no eager launch, no capture during 2 epochs; loader-fed
+     images/s, the idle share, the step's ms on the card, the host's ms per
+     sample; four graphed steps against four eager ones, to the bit.
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failed check raises: nonzero
 exit code and no result line. Needs a CUDA device; uses no JAX.
@@ -1369,6 +1391,29 @@ def demo_phase(engine):
         max_rel_diff_vs_count_image=worst, rel_limit=COUNT_BATCH_REL_TOL)
 
 
+def carpk_tree(d: str, n: int, seed: int) -> None:
+    """A local CARPK tree in ``d``: n PNGs at 720x1280 (Images/) of bright
+    boxes on dark noise, and their boxes (Annotations/*.txt)."""
+    import os
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(d, "Images"))
+    os.makedirs(os.path.join(d, "Annotations"))
+    for i in range(n):
+        img = rng.integers(0, 80, (720, 1280, 3)).astype(np.uint8)
+        lines = []
+        for _ in range(int(rng.integers(30, 80))):
+            x, y = int(rng.integers(0, 1240)), int(rng.integers(0, 690))
+            bw, bh = (int(v) for v in rng.integers(24, 40, 2))
+            img[y:y + bh, x:x + bw] = rng.integers(150, 255, 3)
+            lines.append(f"{x} {y} {x + bw} {y + bh} 1")
+        Image.fromarray(img).save(os.path.join(d, "Images", f"car_{i}.png"))
+        with open(os.path.join(d, "Annotations", f"car_{i}.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+
 def carpk_phase(torch, cli_engine):
     """countr_tpu_torch.cli.test_carpk on a local CARPK tree of 4 PNGs at
     720x1280 (Images/, Annotations/*.txt): without TTN, 2 shots, the
@@ -1376,26 +1421,11 @@ def carpk_phase(torch, cli_engine):
     and B2 18 per replay and no eager launch; the MAE finite."""
     import os
 
-    from PIL import Image
-
     from countr_tpu_torch.cli import test_carpk
     from countr_tpu_torch.engine.inference import CountingEngine
 
-    rng = np.random.default_rng(27)
     with smoke_dir("out_smoke_carpk_") as d:
-        os.makedirs(os.path.join(d, "Images"))
-        os.makedirs(os.path.join(d, "Annotations"))
-        for i in range(4):
-            img = rng.integers(0, 80, (720, 1280, 3)).astype(np.uint8)
-            lines = []
-            for _ in range(int(rng.integers(30, 80))):
-                x, y = int(rng.integers(0, 1240)), int(rng.integers(0, 690))
-                bw, bh = (int(v) for v in rng.integers(24, 40, 2))
-                img[y:y + bh, x:x + bw] = rng.integers(150, 255, 3)
-                lines.append(f"{x} {y} {x + bw} {y + bh} 1")
-            Image.fromarray(img).save(os.path.join(d, "Images", f"car_{i}.png"))
-            with open(os.path.join(d, "Annotations", f"car_{i}.txt"), "w") as f:
-                f.write("\n".join(lines) + "\n")
+        carpk_tree(d, 4, seed=27)
         args = test_carpk.get_args(["--carpk_root", d, "--output_dir", os.path.join(d, "out"),
                                     "--batch_windows", str(WINDOWS)])
         engine = CountingEngine(cli_engine.model, batch_windows=WINDOWS, normalization=False,
@@ -1919,18 +1949,16 @@ def finetune_args(d: str, out: str, *extra):
 
 
 def recorded_losses(ft) -> list:
-    """Every step's loss (a device tensor) of ``ft``'s train step from
-    now on."""
-    losses, step = [], ft.train_step
+    """Every step's loss (a device tensor) of ``ft``'s epochs from now on,
+    on every path (the pipelined one too)."""
+    losses, steps = [], ft.step_metrics
 
-    def spy(batch, shot_num):
-        m = step(batch, shot_num)
-        losses.append(m["loss"])
-        return m
+    def spy(*args):
+        for m in steps(*args):
+            losses.append(m["loss"])
+            yield m
 
-    if hasattr(step, "runner"):
-        spy.runner = step.runner
-    ft.train_step = spy
+    ft.step_metrics = spy
     return losses
 
 
@@ -2078,70 +2106,397 @@ def augment_costs(torch, ft, batch) -> dict:
                 blur_ms=events_ms(lambda: aug.gaussian_blur(img, draws["sigma"]), iters=10))
 
 
-def finetune_cli_phase(torch):
-    """countr_tpu_torch.cli.finetune at full width on a synthetic tree: the
-    subprocess, the in-process host and --device_aug runs, graphed against
-    eager, resumed against uninterrupted. Returns the host run's graph
-    launches."""
+def synthetic_fsc(d: str) -> None:
+    """The finetune phases' synthetic FSC147 tree in ``d``."""
     import os
-    import random
     import subprocess
 
+    root = os.path.dirname(os.path.abspath(__file__))
+    subprocess.run([sys.executable, os.path.join(root, "scripts", "make_synthetic_fsc.py"),
+                    "--out", d, "--n_train", str(FT_TRAIN), "--n_val", str(FT_VAL),
+                    "--n_test", "0"], check=True, capture_output=True)
+
+
+def finetune_cli_phase(torch, d: str):
+    """countr_tpu_torch.cli.finetune at full width on the synthetic tree
+    ``d``: the subprocess, the in-process host and --device_aug runs,
+    graphed against eager, resumed against uninterrupted. Returns the host
+    run's graph launches."""
     from countr_tpu_torch.cli import finetune as cli
 
     t_phase = time.perf_counter()
-    root = os.path.dirname(os.path.abspath(__file__))
-    with smoke_dir("out_smoke_ft_") as d:
-        subprocess.run([sys.executable, os.path.join(root, "scripts", "make_synthetic_fsc.py"),
-                        "--out", d, "--n_train", str(FT_TRAIN), "--n_val", str(FT_VAL),
-                        "--n_test", "0"], check=True, capture_output=True)
-        say("finetune_cli", run="subprocess", **finetune_subprocess(d))
+    say("finetune_cli", run="subprocess", **finetune_subprocess(d))
 
-        stats, losses, weights, launches, line = finetune_inprocess(torch, d, device_aug=False)
-        torch.cuda.empty_cache()
-        say("finetune_cli", run="in-process", **line)
-        # graphed against eager: the run's first 4 steps against 4 eager
-        # CLI steps from the same start (epoch 0's generator and shots)
-        twin = cli.Finetune(finetune_args(d, ""), graphed=False)
-        eager_losses = recorded_losses(twin)
-        twin.args.limit_steps = 4  # after the build: the schedule keeps 12 steps an epoch
-        twin.train_epoch(0, random.Random(f"{twin.args.seed}:0"))
-        twin.close()
-        graphed4 = [float(x) for x in losses[:4]]
-        eager4 = [float(x) for x in eager_losses]
-        if graphed4 != eager4:
-            raise AssertionError(f"finetune_cli: graphed losses {graphed4} against eager {eager4}")
-        del twin
-        torch.cuda.empty_cache()
-        # resumed against uninterrupted: epoch 0, save, a fresh process
-        # state resumed from ckpt_last for epoch 1
-        out = os.path.join(d, "out_split")
-        first = cli.Finetune(finetune_args(d, out))
-        head = first.run_epoch(0)
-        first.close()
-        del first
-        torch.cuda.empty_cache()
-        resumed = cli.Finetune(finetune_args(d, out, "--do_resume"))
-        tail = resumed.run()
-        drop = lambda r: {k: v for k, v in r.items() if k != "epoch_time_s"}  # noqa: E731
-        same_stats = [drop(r) for r in [head, *tail]] == [drop(r) for r in stats]
-        same_weights = all(torch.equal(p, q) for p, q in zip(resumed.model.parameters(),
-                                                               weights, strict=True))
-        if resumed.start_epoch != 1 or not same_stats or not same_weights:
-            raise AssertionError(f"finetune_cli: resumed at {resumed.start_epoch}, stats "
-                                 f"{[head, *tail]} against {stats}, weights equal "
-                                 f"{same_weights}")
-        say("finetune_cli", run="graphed_vs_eager_and_resume", graphed_losses=graphed4,
-            eager_losses=eager4, graphed_equals_eager=True, resumed_at=resumed.start_epoch,
-            resumed_equals_uninterrupted=True)
-        del resumed, weights
-        torch.cuda.empty_cache()
+    stats, losses, weights, launches, line = finetune_inprocess(torch, d, device_aug=False)
+    torch.cuda.empty_cache()
+    say("finetune_cli", run="in-process", **line)
+    # graphed against eager: the run's first 4 steps against 4 eager
+    # CLI steps from the same start (epoch 0's generator and shots)
+    graphed4, eager4 = graphed_vs_eager(losses, lambda: cli.Finetune(finetune_args(d, ""),
+                                                                     graphed=False))
+    resumed_at = resumed_vs_uninterrupted(torch, d, stats, weights)
+    say("finetune_cli", run="graphed_vs_eager_and_resume", graphed_losses=graphed4,
+        eager_losses=eager4, graphed_equals_eager=True, resumed_at=resumed_at,
+        resumed_equals_uninterrupted=True)
+    del weights
+    torch.cuda.empty_cache()
 
-        line = finetune_inprocess(torch, d, device_aug=True)[-1]
-        say("finetune_cli", run="in-process", **line)
-        torch.cuda.empty_cache()
+    line = finetune_inprocess(torch, d, device_aug=True)[-1]
+    say("finetune_cli", run="in-process", **line)
+    torch.cuda.empty_cache()
     say("finetune_cli_done", seconds=time.perf_counter() - t_phase)
     return launches
+
+
+def fsc_epoch0(ft):
+    """Epoch 0 of the FSC147 CLI ``ft``, with its shot stream."""
+    import random
+
+    return ft.train_epoch(0, random.Random(f"{ft.args.seed}:0"))
+
+
+def graphed_vs_eager(losses, make_twin, epoch0=fsc_epoch0, steps: int = 4):
+    """The first ``steps`` losses of a graphed run against ``steps`` eager
+    steps (``epoch0(twin)``) of a twin from the same start (epoch 0's
+    generator and shots), to the bit. Returns both lists; raises
+    otherwise."""
+    twin = make_twin()
+    eager_losses = recorded_losses(twin)
+    twin.args.limit_steps = steps  # after the build: the schedule keeps its steps an epoch
+    epoch0(twin)
+    twin.close()
+    graphed = [float(x) for x in losses[:steps]]
+    eager = [float(x) for x in eager_losses]
+    if graphed != eager:
+        raise AssertionError(f"graphed losses {graphed} against eager {eager}")
+    return graphed, eager
+
+
+def resumed_vs_uninterrupted(torch, d: str, stats, weights, *extra) -> int:
+    """Epoch 0 of a run that saves, then a fresh state resumed from
+    ckpt_last for epoch 1, against the uninterrupted run's ``stats`` and
+    ``weights``: the same stats and weights, to the bit. Returns the epoch
+    the resumed run started at; raises otherwise."""
+    import os
+
+    from countr_tpu_torch.cli import finetune as cli
+
+    out = os.path.join(d, "out_split" + "_".join(e.strip("-") for e in extra))
+    first = cli.Finetune(finetune_args(d, out, *extra))
+    head = first.run_epoch(0)
+    first.close()
+    del first
+    torch.cuda.empty_cache()
+    resumed = cli.Finetune(finetune_args(d, out, "--do_resume", *extra))
+    tail = resumed.run()
+    drop = lambda r: {k: v for k, v in r.items() if k != "epoch_time_s"}  # noqa: E731
+    same_stats = [drop(r) for r in [head, *tail]] == [drop(r) for r in stats]
+    same_weights = all(torch.equal(p, q) for p, q in zip(resumed.model.parameters(), weights,
+                                                           strict=True))
+    if resumed.start_epoch != 1 or not same_stats or not same_weights:
+        raise AssertionError(f"finetune_cli {extra}: resumed at {resumed.start_epoch}, stats "
+                             f"{[head, *tail]} against {stats}, weights equal {same_weights}")
+    start = resumed.start_epoch
+    del resumed
+    torch.cuda.empty_cache()
+    return start
+
+
+NO_LAUNCHES = dict.fromkeys(FT_TRAIN_LAUNCHES, 0)
+
+
+def check_runners(what: str, runners: dict, expect: dict, graphs_before: int, graphs_after: int):
+    """Each runner's replays and launches per replay against ``expect``
+    ({name: (replays, per replay)}), no eager launch and no graph captured
+    during the run. Returns (replays, per replay, eager launches); raises
+    otherwise."""
+    eager = launch_counts()
+    replays = {k: r.replays for k, r in runners.items()}
+    per = {k: {n: v / max(r.replays, 1) for n, v in r.launched.items()}
+           for k, r in runners.items()}
+    want = {k: e[0] for k, e in expect.items()}
+    if any(eager.values()) or graphs_after != graphs_before or replays != want \
+            or any(per[k] != e[1] for k, e in expect.items()):
+        raise AssertionError(f"{what}: eager launches {eager}, graphs {graphs_before} -> "
+                             f"{graphs_after}, replays {replays} (expected {want}), per "
+                             f"replay {per}")
+    return replays, per, eager
+
+
+def resident_inprocess(torch, d: str, pipelined: bool):
+    """The CLI's --resident_data run (--resident_pipeline with
+    ``pipelined``) in this process, its graphs captured first and the
+    counters at 0: the launches per replay, no eager launch, no capture
+    during the epochs; the loader-fed rate of a timed epoch, a profiled
+    epoch, the graphed step's ms on a batch already on the card, the
+    materialisation's ms (graphed, bitwise against eager), the host's
+    rates, the stores' bytes. Returns (stats, weights, losses, launches,
+    line)."""
+    import random
+
+    from countr_tpu_torch.bench import events_ms
+    from countr_tpu_torch.cli import finetune as cli
+    from countr_tpu_torch.data.loader import device_prefetch
+    from countr_tpu_torch.engine import train as engine
+    from countr_tpu_torch.engine.train_store import materialize_batch
+
+    path = "resident_pipeline" if pipelined else "resident"
+    extra = ("--resident_data",) + (("--resident_pipeline",) if pipelined else ())
+    t0 = time.perf_counter()
+    ft = cli.Finetune(finetune_args(d, "", *extra))
+    build_s = time.perf_counter() - t0
+    graphs = ft.graphs()
+    losses = recorded_losses(ft)
+    val_batches = -(-FT_VAL // TRAIN_BATCH)
+    if pipelined:
+        runners = {"prime": ft.prime.runner, "pipelined": ft.pipe_step.runner,
+                   "train_phase": ft.train_phase.runner}
+        expect = {"prime": (2, NO_LAUNCHES), "pipelined": (2 * (FT_STEPS - 1), FT_TRAIN_LAUNCHES),
+                  "train_phase": (2, FT_TRAIN_LAUNCHES)}
+    else:
+        runners = {"train": ft.train_step.runner}
+        expect = {"train": (2 * FT_STEPS, FT_TRAIN_LAUNCHES)}
+    runners["eval"] = ft.eval_step.runner
+    expect["eval"] = (2 * val_batches, FT_EVAL_LAUNCHES)
+    reset_counts()
+    for r in runners.values():
+        r.zero_counts()
+    stats = ft.run()
+    replays, per, eager = check_runners(f"resident_cli ({path})", runners, expect, graphs,
+                                        ft.graphs())
+    numbers = [v for r in stats for k, v in r.items() if k != "epoch"]
+    if not np.all(np.isfinite(numbers)):
+        raise AssertionError(f"resident_cli ({path}): stats {stats}")
+    weights = [p.detach().clone() for p in ft.model.parameters()]
+    launches = {k: sum(r.launched[k] for r in runners.values()) for k in FT_TRAIN_LAUNCHES}
+
+    rng = random.Random(7)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr = ft.train_epoch(2, rng)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    prof = profile_run(torch, lambda: ft.train_epoch(3, rng), 1)
+    batch = next(device_prefetch(ft.train_dl.epoch(4), ft.device, ft.batch_keys))
+    if pipelined:
+        carry = ft.prime(batch)
+        step_ms = events_ms(lambda: ft.pipe_step(carry, batch, 3), iters=8)
+    else:
+        step_ms = events_ms(lambda: ft.train_step(batch, 3), iters=8)
+    line = dict(path=path, graphs=graphs, capture_s=ft.capture_s, build_s=build_s,
+                epochs=stats, replays=replays, launches_per_replay=per, eager_launches=eager,
+                graphs_after=ft.graphs(), timed_epoch_steps=tr["steps"], timed_epoch_s=epoch_s,
+                loader_fed_images_per_s=tr["steps"] * TRAIN_BATCH / epoch_s,
+                step_ms_on_card=step_ms, step_images_per_s_on_card=TRAIN_BATCH / step_ms * 1e3,
+                idle_share=prof["idle_share"], profile=prof,
+                store_bytes=ft.store.nbytes, val_store_bytes=ft.val_store.nbytes,
+                mosaic_in_batch=int((batch["is_mosaic"] > 0).sum()), **host_rates(ft))
+    if not pipelined:
+        # the materialisation alone, graphed against eager at one generator
+        # state, with TF32 off (the same bits; it runs no matrix product or
+        # convolution, so the flags cannot reach it), and its ms; the
+        # pixels alone (eager)
+        arrays = ft.store.arrays
+        flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        gens = [torch.Generator(device=ft.device) for _ in range(2)]
+        mats = [engine.make_store_materialize(ft.state, ft.tcfg, arrays, g, graphed=graphed)
+                for g, graphed in zip(gens, (True, False))]
+        outs = []
+        for g, mat in zip(gens, mats):
+            g.manual_seed(11)
+            outs.append(mat(batch))
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+        same = {k: bool(torch.equal(outs[0][k], outs[1][k])) for k in engine.CARRY_KEYS}
+        if not all(same.values()):
+            raise AssertionError(f"resident_cli: graphed materialisation against eager {same}")
+        line.update(materialize_graphed_equals_eager=True, materialize_check_tf32=False,
+                    run_tf32_matmul=flags[0], run_tf32_cudnn=flags[1],
+                    materialize_graphed_ms=events_ms(lambda: mats[0](batch), iters=10),
+            materialize_eager_ms=events_ms(lambda: mats[1](batch), iters=10),
+            pixels_eager_ms=events_ms(lambda: materialize_batch(arrays, batch), iters=10))
+        del mats, outs
+    ft.close()
+    return stats, weights, losses, launches, line
+
+
+def resident_cli_phase(torch, d: str):
+    """countr_tpu_torch.cli.finetune --resident_data at full width on the
+    synthetic tree ``d``: the serial run, graphed against eager, resumed
+    against uninterrupted, and the --resident_pipeline run against the
+    serial one, each to the bit. Returns the serial and pipelined runs'
+    graph launches together."""
+    from countr_tpu_torch.cli import finetune as cli
+
+    t_phase = time.perf_counter()
+    stats, weights, losses, launches, line = resident_inprocess(torch, d, pipelined=False)
+    torch.cuda.empty_cache()
+    say("resident_cli", run="in-process", **line)
+    graphed4, eager4 = graphed_vs_eager(losses, lambda: cli.Finetune(
+        finetune_args(d, "", "--resident_data"), graphed=False))
+    resumed_at = resumed_vs_uninterrupted(torch, d, stats, weights, "--resident_data")
+    p_stats, p_weights, _, p_launches, p_line = resident_inprocess(torch, d, pipelined=True)
+    say("resident_cli", run="in-process", **p_line)
+    drop = lambda r: {k: v for k, v in r.items() if k != "epoch_time_s"}  # noqa: E731
+    same_stats = [drop(r) for r in p_stats] == [drop(r) for r in stats]
+    same_weights = all(torch.equal(p, q) for p, q in zip(p_weights, weights, strict=True))
+    if not (same_stats and same_weights):
+        raise AssertionError(f"resident_cli: pipelined stats {p_stats} against serial {stats}, "
+                             f"weights equal {same_weights}")
+    say("resident_cli", run="graphed_vs_eager_resume_pipelined", graphed_losses=graphed4,
+        eager_losses=eager4, graphed_equals_eager=True, resumed_at=resumed_at,
+        resumed_equals_uninterrupted=True, pipelined_equals_serial=True,
+        step_ms_serial=line["step_ms_on_card"], step_ms_pipelined=p_line["step_ms_on_card"])
+    del weights, p_weights
+    torch.cuda.empty_cache()
+    say("resident_cli_done", seconds=time.perf_counter() - t_phase)
+    return {k: launches[k] + p_launches[k] for k in launches}
+
+
+POOL_IMAGES, POOL_H, POOL_W = 3659, 384, 512  # FSC147's train split, at 384x512
+
+
+def store_pool_phase(torch, dev):
+    """``materialize_batch`` alone on a pool of FSC147's size made on the
+    card (3659 random images at 384x512, ~2.2 GB of uint8, far beyond the
+    50 MB L2), 8 batches of 8 samples of the CLI's geometry (a quarter of
+    them mosaics; every sample pays the mosaic path, n_mosaic None, as in
+    the CLI), eager and replayed from one CUDA graph (CUDA events), beside
+    the bytes bound: the output written once and each source pixel that
+    the batch's taps need read once."""
+    from countr_tpu_torch.data import transforms as T
+    from countr_tpu_torch.engine.train_store import compose_affine, materialize_batch
+
+    n, h, w = POOL_IMAGES, POOL_H, POOL_W
+    gen = torch.Generator(device=dev).manual_seed(0)
+    arrays = {
+        "pixels": torch.randint(0, 256, (n * h * w + 384, 3), generator=gen, device=dev,
+                                dtype=torch.uint8),
+        "exemplars": torch.randint(0, 256, (n, 3, 64, 64, 3), generator=gen, device=dev,
+                                   dtype=torch.uint8),
+        "base": torch.arange(n, device=dev) * (h * w),
+        "width": torch.full((n,), w, device=dev), "height": torch.full((n,), h, device=dev)}
+    rng = np.random.default_rng(3)
+    batches, source_px = [], 0
+    for _ in range(8):
+        geo = {k: [] for k in ("img_idx", "affine_C", "affine_d", "is_mosaic", "cell_idx",
+                               "cell_top", "cell_left", "cell_len", "blend_l")}
+        for i in range(TRAIN_BATCH):
+            mosaic = i % 4 == 0
+            idx = int(rng.integers(0, n))
+            C, d = compose_affine(T.draw_affine_matrix(rng, h, w), bool(rng.random() > 0.5),
+                                  int(rng.integers(0, w - 383)), int(rng.integers(0, h - 383)), w)
+            lens = rng.integers(250, 385, 4)
+            geo["img_idx"].append(idx)
+            geo["affine_C"].append(C)
+            geo["affine_d"].append(d)
+            geo["is_mosaic"].append(float(mosaic))
+            geo["cell_idx"].append(rng.integers(0, n, 4))
+            geo["cell_top"].append([int(rng.integers(0, h - v + 1)) for v in lens])
+            geo["cell_left"].append([int(rng.integers(0, w - v + 1)) for v in lens])
+            geo["cell_len"].append(lens)
+            geo["blend_l"].append(int(rng.integers(10, 21)))
+            source_px += int((lens ** 2).sum()) if mosaic else 384 * 384
+        batches.append({k: torch.as_tensor(np.asarray(v), device=dev).to(
+            torch.float32 if k in ("affine_C", "affine_d", "is_mosaic") else torch.int32)
+            for k, v in geo.items()})
+    arg_sets = [(b,) for b in batches]
+    fn = lambda b: materialize_batch(arrays, b)  # noqa: E731
+    affine = lambda b: materialize_batch(arrays, b, 0)  # noqa: E731
+    out_bytes = TRAIN_BATCH * (384 * 384 * 3 + 3 * 64 * 64 * 3) * 4
+    moved = out_bytes + (source_px / len(batches)) * 3 + TRAIN_BATCH * 3 * 64 * 64 * 3
+    line = dict(pool_images=n, pool_bytes=int(arrays["pixels"].numel()), batch=TRAIN_BATCH,
+                mosaic_per_batch=TRAIN_BATCH // 4,
+                eager_ms=time_ms(torch, fn, arg_sets, iters=16),
+                graphed_ms=graph_ms(torch, fn, arg_sets),
+                affine_only_graphed_ms=graph_ms(torch, affine, arg_sets),
+                bound_ms=moved / H100_BYTES_PER_S * 1e3, bound_by="bytes", bytes_moved=moved)
+    say("store_pool", **line)
+    del arrays, batches, arg_sets
+    torch.cuda.empty_cache()
+
+
+CARPK_TRAIN = 8  # the carpk_cli phase's tree: PNGs at 720x1280
+CARPK_EPOCH_LAUNCHES = CARPK_TRAIN  # batch 1 (the CLI's default): 8 steps an epoch
+
+
+def carpk_cli_phase(torch):
+    """countr_tpu_torch.cli.finetune_carpk at full width on a local CARPK
+    tree of 8 PNGs at 720x1280, batch 1 (the CLI's default), on the host
+    path and with --resident_data: graphs captured first and the counters
+    at 0 (B1 44, B3 18, B4 6 per replay, no eager launch, no capture during
+    the epochs), 2 epochs, the loader-fed images/s of a timed epoch, a
+    profiled epoch (idle share), the graphed step's ms on a batch already
+    on the card, the host's ms per sample, and 4 graphed steps against 4
+    eager ones (the same losses to the bit). Returns both runs' graph
+    launches together."""
+    import os
+
+    from countr_tpu_torch.bench import events_ms
+    from countr_tpu_torch.cli import finetune_carpk as cli
+    from countr_tpu_torch.data.loader import device_prefetch
+
+    t_phase = time.perf_counter()
+    total = dict(NO_LAUNCHES)
+    with smoke_dir("out_smoke_carpk_ft_") as d:
+        carpk_tree(d, CARPK_TRAIN, seed=31)
+        for resident in (False, True):
+            path = "resident" if resident else "host"
+
+            def args():
+                return cli.get_args(["--carpk_root", d, "--output_dir", "", "--epochs", "2",
+                                     "--num_workers", "8", "--dtype", "bf16",
+                                     *(["--resident_data"] * resident)])
+
+            t0 = time.perf_counter()
+            ft = cli.FinetuneCarpk(args())
+            build_s = time.perf_counter() - t0
+            graphs = ft.graphs()
+            losses = recorded_losses(ft)
+            step, runner = ft.step, ft.step.runner
+            reset_counts()
+            runner.zero_counts()
+            stats = ft.run()
+            replays, per, eager = check_runners(
+                f"carpk_cli ({path})", {"train": runner},
+                {"train": (2 * CARPK_EPOCH_LAUNCHES, FT_TRAIN_LAUNCHES)}, graphs, ft.graphs())
+            total = {k: total[k] + runner.launched[k] for k in total}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr = ft.train_epoch(2)
+            torch.cuda.synchronize()
+            epoch_s = time.perf_counter() - t0
+            prof = profile_run(torch, lambda: ft.train_epoch(3), 1)
+            batch = next(device_prefetch(ft.batches(4), ft.device, ft.batch_keys))
+            step_ms = events_ms(lambda: step(batch), iters=8)
+            t0 = time.perf_counter()
+            if resident:
+                from countr_tpu_torch.engine.carpk_store import exemplar_geometry
+
+                g = np.random.default_rng(0)
+                for i in range(64):
+                    exemplar_geometry(g, ft.store, np.asarray([i % CARPK_TRAIN]))
+                host_ms = (time.perf_counter() - t0) * 1e3 / 64
+            else:
+                for i in range(CARPK_TRAIN):
+                    ft.dl.dataset[i]
+                host_ms = (time.perf_counter() - t0) * 1e3 / CARPK_TRAIN
+            ft.close()
+            graphed4, eager4 = graphed_vs_eager(
+                losses, lambda: cli.FinetuneCarpk(args(), graphed=False),
+                epoch0=lambda twin: twin.train_epoch(0))
+            say("carpk_cli", path=path, graphs=graphs, capture_s=ft.capture_s, build_s=build_s,
+                epochs=stats, replays=replays, launches_per_replay=per, eager_launches=eager,
+                graphs_after=ft.graphs(), timed_epoch_steps=tr["steps"], timed_epoch_s=epoch_s,
+                loader_fed_images_per_s=tr["steps"] * ft.args.batch_size / epoch_s,
+                step_ms_on_card=step_ms, idle_share=prof["idle_share"], profile=prof,
+                host_ms_per_sample_1_thread=host_ms, cpu_count=os.cpu_count(),
+                store_bytes=ft.store.nbytes if resident else 0, graphed_losses=graphed4,
+                eager_losses=eager4, graphed_equals_eager=True)
+            del ft, step, runner
+            torch.cuda.empty_cache()
+    say("carpk_cli_done", seconds=time.perf_counter() - t_phase)
+    return total
 
 
 def main() -> int:
@@ -2203,7 +2558,12 @@ def main() -> int:
     del ref
     by_path["pretrain"] = pretrain_phase(torch, dev, fused=False)
     by_path["pretrain_b2_on"] = pretrain_phase(torch, dev, fused=True)
-    by_path["finetune_cli"] = finetune_cli_phase(torch)
+    with smoke_dir("out_smoke_ft_") as d:
+        synthetic_fsc(d)
+        by_path["finetune_cli"] = finetune_cli_phase(torch, d)
+        by_path["resident_cli"] = resident_cli_phase(torch, d)
+    store_pool_phase(torch, dev)
+    by_path["carpk_cli"] = carpk_cli_phase(torch)
 
     def entry(name, route, source, replaces, path, shapes, **extra):
         main_shape = dict(shapes[0])

@@ -5,15 +5,19 @@ The encoder is frozen (``--unfreeze_encoder`` trains it), the loss is the
 masked MSE, each batch draws its shot number with the m_flag rule, and
 each epoch validates (MAE, RMSE, NAE) and keeps periodic, last and
 minimum-MAE checkpoints (reference: FSC_finetune_cross.py). Samples are
-augmented on the host by the loader's threads (or processes), or with
-``--device_aug`` on the card inside the step; the loader's batches are
-uploaded ahead of the step from pinned memory (``data/loader.py
-device_prefetch``). On the card every step and eval is replayed from a
-CUDA graph, all captured before the first batch.
+augmented on the host by the loader's threads (or processes); with
+``--device_aug`` the host does the geometry and the card the photometric
+chain inside the step; with ``--resident_data`` the decoded train and
+validation splits live on the card (``engine/train_store.py``), the host
+draws only each sample's geometry, and the step materialises the pixels
+(``--resident_pipeline``: one batch ahead, trajectory-exact, opt-in). The
+loader's batches are uploaded ahead of the step from pinned memory
+(``data/loader.py device_prefetch``). On the card every step, eval and
+materialisation is replayed from a CUDA graph, all captured before the
+first batch.
 
-Not ported yet, and refused with the ROADMAP item: ``--resident_data``
-and ``--resident_pipeline`` (item 6), ``--n_devices`` above 1 (item 8).
-TensorBoard, the validation panels and W&B are item 9.
+Not ported yet, and refused with the ROADMAP item: ``--n_devices`` above
+1 (item 8). TensorBoard, the validation panels and W&B are item 9.
 
 Usage:
   python -m countr_tpu_torch.cli.finetune --data_path ./data/FSC147 \\
@@ -24,6 +28,8 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import functools
+import itertools
 import os
 import random
 import time
@@ -55,11 +61,13 @@ def get_args(argv=None):
                         "the card inside the train step (uint8 geometry on the host; a "
                         "quarter of the upload; see countr_tpu_torch.ops.augment)")
     p.add_argument("--resident_data", action="store_true",
-                   help="the decoded train split resident on the card; not ported yet "
-                        "(ROADMAP item 6)")
+                   help="upload the decoded train and validation splits to the card once "
+                        "and materialise every augmented batch there from per-sample "
+                        "geometry (~KBs a step over the wire; see "
+                        "countr_tpu_torch.engine.train_store)")
     p.add_argument("--resident_pipeline", action="store_true",
-                   help="the resident mode as two dispatches per step; not ported yet "
-                        "(ROADMAP item 6)")
+                   help="with --resident_data: materialise batch j+1 in the step that "
+                        "trains batch j (the same trajectory, one batch behind; opt-in)")
     p.add_argument("--num_workers", default=8, type=int)
     p.add_argument("--use_processes", action="store_true",
                    help="process-pool data workers (GIL-free augmentation on many-core hosts)")
@@ -96,9 +104,6 @@ def epoch_seed(seed: int, epoch: int) -> int:
 
 
 def refuse_unported(args) -> None:
-    if getattr(args, "resident_data", False) or getattr(args, "resident_pipeline", False):
-        raise ValueError("--resident_data / --resident_pipeline: the resident data stores "
-                         "are not ported yet (ROADMAP item 6)")
     if getattr(args, "n_devices", 0) > 1:
         raise ValueError(f"--n_devices {args.n_devices}: the port trains on one device; "
                          "data parallelism is not ported yet (ROADMAP item 8)")
@@ -122,10 +127,11 @@ def _zeros(shape, dtype, device) -> torch.Tensor:
 
 
 class Finetune:
-    """The CLI's run: the model, the training state, the loaders and the
-    steps, built by ``__init__`` (on the card every graph is captured
-    there, before any batch), and ``run()``, the epochs. ``graphed``:
-    None = CUDA graphs on the card; False = eager steps."""
+    """The CLI's run: the model, the training state, the loaders (and on
+    ``--resident_data`` the stores) and the steps, built by ``__init__``
+    (on the card every graph is captured there, before any batch), and
+    ``run()``, the epochs. ``graphed``: None = CUDA graphs on the card;
+    False = eager steps."""
 
     def __init__(self, args, graphed=None):
         from countr_tpu_torch.data.fsc147 import TrainDataset, ValDataset
@@ -144,9 +150,17 @@ class Finetune:
         self.outdir = common.ensure_outdir(args)
         self.jsonl = JsonlLogger(self.outdir)
         self.device_aug = args.device_aug and not args.no_aug
+        self.resident = args.resident_data and not args.no_aug
+        self.pipelined = self.resident and args.resident_pipeline
 
+        self.store = self.val_store = None
+        if self.resident:
+            from countr_tpu_torch.engine.train_store import build_store
+
+            self.store = build_store(meta, meta.splits["train"], self.device)
         self.train_ds = TrainDataset(meta, do_aug=not args.no_aug, seed=args.seed,
-                                     device_aug=self.device_aug)
+                                     device_aug=self.device_aug,
+                                     store_index=self.store.index if self.resident else None)
         self.val_ds = ValDataset(meta)
         self.train_dl = DataLoader(self.train_ds, args.batch_size, shuffle=True,
                                    num_workers=args.num_workers, drop_last=True, seed=args.seed,
@@ -164,12 +178,36 @@ class Finetune:
         self.state = engine.init_train_state(
             model, self.tcfg, self.steps_per_epoch,
             args.batch_size * args.accum_iter)  # the effective batch scales blr
-        self.generator = torch.Generator(device=self.device)
-        self.train_step = engine.make_finetune_step(
-            self.state, self.tcfg, self.generator, graphed=graphed, device_aug=self.device_aug)
-        self.eval_step = engine.make_eval_step(model, graphed=graphed)
-        self.batch_keys = engine.DEVICE_AUG_KEYS if self.device_aug else engine.FINETUNE_KEYS
-        self.capture_s = self._capture() if hasattr(self.train_step, "capture") else 0.0
+        self.generator = gen = torch.Generator(device=self.device)
+        if self.resident:
+            from countr_tpu_torch.engine.train_store import build_val_store
+
+            arrays = self.store.arrays
+            if self.pipelined:
+                self.prime = engine.make_store_materialize(self.state, self.tcfg, arrays, gen,
+                                                           graphed=graphed)
+                self.pipe_step = engine.make_store_finetune_step_pipelined(
+                    self.state, self.tcfg, arrays, gen, graphed=graphed)
+                self.train_phase = engine.make_store_train_phase(self.state, self.tcfg,
+                                                                 graphed=graphed)
+                self.train_steps = (self.prime, self.pipe_step, self.train_phase)
+            else:
+                self.train_step = engine.make_store_finetune_step(self.state, self.tcfg,
+                                                                  arrays, gen, graphed=graphed)
+                self.train_steps = (self.train_step,)
+            # validation is resident too: its fixed 384^2 samples would
+            # otherwise upload again every epoch
+            self.val_store = build_val_store(self.val_ds, self.device)
+            self.eval_step = engine.make_store_eval_step(model, self.val_store.arrays,
+                                                         graphed=graphed)
+            self.batch_keys = engine.STORE_KEYS
+        else:
+            self.train_step = engine.make_finetune_step(
+                self.state, self.tcfg, gen, graphed=graphed, device_aug=self.device_aug)
+            self.train_steps = (self.train_step,)
+            self.eval_step = engine.make_eval_step(model, graphed=graphed)
+            self.batch_keys = engine.DEVICE_AUG_KEYS if self.device_aug else engine.FINETUNE_KEYS
+        self.capture_s = self._capture() if hasattr(self.eval_step, "capture") else 0.0
 
         self.start_epoch = 0
         if args.do_resume and self.outdir:
@@ -181,46 +219,101 @@ class Finetune:
 
     def _capture(self) -> float:
         """Capture the train step's graphs for every reachable shot (its
-        accumulate and update pair under accumulation) and the eval
-        step's for shots 0-3 at the padded validation batch, on zero
+        accumulate and update pair under accumulation; on the pipelined
+        path the materialisation, the pipelined step and the train phase)
+        and the eval step's for shots 0-3 at the padded validation batch, on
         batches of the loader's shapes and dtypes; returns seconds."""
+        from countr_tpu_torch.data.fsc147 import TrainDataset
+        from countr_tpu_torch.engine import train as engine
+
         t0 = time.perf_counter()
         b, hw, dev = self.args.batch_size, self.model.cfg.img_size, self.device
         boxes = _zeros((b, 3, 64, 64, 3), torch.float32, dev)
-        if self.device_aug:
-            from countr_tpu_torch.data.fsc147 import TrainDataset
-
-            batch = {"image_u8": _zeros((b, hw, hw, 3), torch.uint8, dev),
-                     "dots": _zeros((b, TrainDataset.MAX_DEVICE_DOTS, 2), torch.int16, dev),
-                     "n_dots": _zeros((b,), torch.int32, dev),
+        dots = {"dots": _zeros((b, TrainDataset.MAX_DEVICE_DOTS, 2), torch.int16, dev),
+                "n_dots": _zeros((b,), torch.int32, dev)}
+        if self.resident:
+            # a valid geometry (the warm-up runs it): image 0's top-left
+            # 384^2 through the identity map and as every mosaic cell
+            i32 = functools.partial(torch.full, dtype=torch.int32, device=dev)
+            batch = {"img_idx": i32((b,), 0),
+                     "affine_C": torch.eye(2, device=dev).expand(b, 2, 2).contiguous(),
+                     "affine_d": _zeros((b, 2), torch.float32, dev),
+                     "is_mosaic": torch.ones((b,), device=dev), "cell_idx": i32((b, 4), 0),
+                     "cell_top": i32((b, 4), 0), "cell_left": i32((b, 4), 0),
+                     "cell_len": i32((b, 4), hw), "blend_l": i32((b,), 10), **dots}
+            val = {"idxs": _zeros((b,), torch.int64, dev),
+                   "valid": _zeros((b,), torch.float32, dev)}
+        elif self.device_aug:
+            batch = {"image_u8": _zeros((b, hw, hw, 3), torch.uint8, dev), **dots,
                      "apply_photo": _zeros((b,), torch.float32, dev), "boxes": boxes}
         else:
             batch = {"image": _zeros((b, hw, hw, 3), torch.float32, dev),
                      "gt_density": _zeros((b, hw, hw), torch.float32, dev), "boxes": boxes}
-        val = {"image": _zeros((b, hw, hw, 3), torch.float32, dev),
-               "gt_density": _zeros((b, hw, hw), torch.float32, dev), "boxes": boxes,
-               "valid": _zeros((b,), torch.float32, dev)}
+        if not self.resident:
+            val = {"image": _zeros((b, hw, hw, 3), torch.float32, dev),
+                   "gt_density": _zeros((b, hw, hw), torch.float32, dev), "boxes": boxes,
+                   "valid": _zeros((b,), torch.float32, dev)}
+        if self.pipelined:
+            carry = dict(zip(engine.CARRY_KEYS, (
+                _zeros((b, hw, hw, 3), torch.float32, dev),
+                _zeros((b, hw, hw), torch.float32, dev), boxes,
+                _zeros((hw, hw), torch.bool, dev))))
+            self.prime.capture(batch)
         for shot in range(4):
-            self.train_step.capture(batch, shot)
+            if self.pipelined:
+                self.pipe_step.capture(carry, batch, shot)
+                self.train_phase.capture(carry, shot)
+            else:
+                self.train_step.capture(batch, shot)
             self.eval_step.capture(val, shot)
         torch.cuda.synchronize(dev)
         return time.perf_counter() - t0
 
     def graphs(self) -> int:
         """The CUDA graphs captured so far (0 for eager steps)."""
-        return sum(len(f.runner) for f in (self.train_step, self.eval_step)
+        return sum(len(f.runner) for f in (*self.train_steps, self.eval_step)
                    if hasattr(f, "runner"))
 
     def _val_batches(self) -> Iterator[Dict]:
-        """The validation batches padded to the full batch by repeating
-        the last sample, with ``valid`` 0 on the padding."""
+        """The validation batches padded to the full batch, with ``valid``
+        0 on the padding: the resident store's indices (wrapped around),
+        else the loader's samples (the last one repeated)."""
         b = self.args.batch_size
+        if self.resident:
+            n = self.val_store.n
+            for i0 in range(0, n, b):
+                k = min(b, n - i0)
+                yield {"idxs": np.arange(i0, i0 + b, dtype=np.int64) % n,
+                       "valid": np.concatenate([np.ones(k, np.float32),
+                                                np.zeros(b - k, np.float32)])}
+            return
         for batch in self.val_dl.epoch(0):
             n = batch["image"].shape[0]
             out = {k: np.concatenate([batch[k], batch[k][-1:].repeat(b - n, 0)])
                    for k in ("image", "gt_density", "boxes")}
             out["valid"] = np.concatenate([np.ones(n, np.float32), np.zeros(b - n, np.float32)])
             yield out
+
+    def step_metrics(self, batches: Iterator[Dict], py_rng: random.Random) -> Iterator[Dict]:
+        """Train on ``batches`` (on the device): each step's metrics. Each
+        batch's shot is drawn from ``py_rng`` with the m_flag rule. On the
+        pipelined path the step that receives batch j + 1 trains batch j,
+        and the epoch's last batch trains alone: the same draws, in the
+        same order, as the serial path."""
+        if not self.pipelined:
+            for batch in batches:
+                yield self.train_step(batch, sample_shot_num(py_rng, batch["m_flag"]))
+            return
+        carry = flags = None
+        for batch in batches:
+            if carry is None:
+                carry = self.prime(batch)
+            else:
+                m, carry = self.pipe_step(carry, batch, sample_shot_num(py_rng, flags))
+                yield m
+            flags = batch["m_flag"]
+        if carry is not None:
+            yield self.train_phase(carry, sample_shot_num(py_rng, flags))
 
     def train_epoch(self, epoch: int, py_rng: random.Random) -> Dict:
         """One epoch of steps on the loader's batches; returns the host
@@ -229,12 +322,11 @@ class Finetune:
 
         args = self.args
         self.generator.manual_seed(epoch_seed(args.seed, epoch))
+        batches = device_prefetch(self.train_dl.epoch(epoch), self.device, self.batch_keys)
+        if args.limit_steps:
+            batches = itertools.islice(batches, args.limit_steps)
         totals, n_steps = None, 0
-        for batch in device_prefetch(self.train_dl.epoch(epoch), self.device, self.batch_keys):
-            if args.limit_steps and n_steps >= args.limit_steps:
-                break
-            shot_num = sample_shot_num(py_rng, batch["m_flag"])
-            m = self.train_step(batch, shot_num)
+        for m in self.step_metrics(batches, py_rng):
             totals = m if totals is None else {k: totals[k] + m[k] for k in totals}
             n_steps += 1
             if n_steps % 32 == 0 and not torch.isfinite(totals["loss"]):
@@ -250,7 +342,8 @@ class Finetune:
 
     def validate(self, py_rng: random.Random) -> Dict:
         """The validation split (reference: FSC_finetune_cross.py:328-350):
-        error sums over the real samples."""
+        error sums over the real samples, each batch at a shot drawn from
+        ``py_rng``."""
         from countr_tpu_torch.data.loader import device_prefetch
 
         v = {"err_sum": 0.0, "sq_sum": 0.0, "nae_sum": 0.0, "n": 0.0}

@@ -1,6 +1,7 @@
-"""CARPK car counting: the local dataset and the test recipe (counterpart
-of ``countr_tpu/data/carpk.py``: ``CarpkLocal``, ``_crop_resize64``,
-``carpk_test_sample``, ``carpk_postprocess``, ``load_carpk``).
+"""CARPK car counting: the local dataset and the train and test recipes
+(counterpart of ``countr_tpu/data/carpk.py``: ``CarpkLocal``,
+``_crop_resize64``, ``carpk_train_sample``, ``carpk_test_sample``,
+``carpk_postprocess``, ``load_carpk``).
 
 The reference streams CARPK from Deep Lake (reference:
 FSC_test_CARPK.py:115-117 hub://activeloop/carpk-test). That needs a
@@ -61,6 +62,33 @@ def _crop_resize64(image_f: np.ndarray, box_xywh) -> np.ndarray:
     if crop.size == 0:
         crop = np.zeros((1, 1, 3), np.float32)
     return cv2.resize(crop, (64, 64), interpolation=cv2.INTER_LINEAR)
+
+
+def carpk_train_sample(rng: np.random.Generator, sample: Dict) -> Dict:
+    """Reference fine-tune preprocessing (FSC_finetune_CARPK.py:204-240):
+    one random exemplar box cropped at the original resolution -> 64x64;
+    the image resized to 384x683, then its left 384x384; the density from
+    the box centres with x < 720, both axes scaled by 384/720, a sigma 1
+    gaussian, x60. shot_num is 1 and the loss is unmasked."""
+    from countr_tpu_torch.data import transforms as T
+
+    image_f = sample["image"].astype(np.float32) / 255.0
+    boxes = sample["boxes_xywh"]
+    exemplar = _crop_resize64(image_f, boxes[int(rng.integers(0, len(boxes)))])
+    image = cv2.resize(image_f, (683, 384), interpolation=cv2.INTER_LINEAR)[0:384, 0:384]
+    density = np.zeros((384, 384), np.float32)
+    for (x, y, w, h) in boxes:
+        cx, cy = int(x + w / 2), int(y + h / 2)
+        if cx < 720:
+            density[int(cy * 384 / 720), int(cx * 384 / 720)] = 1.0
+    density = T.smooth_density(density, sigma=1.0) * 60.0
+    return {
+        "image": np.ascontiguousarray(image, np.float32),
+        "gt_density": density,
+        "boxes": exemplar[None].repeat(3, axis=0),  # 3 slots, shot 1
+        "m_flag": 1,  # shot >= 1: CARPK always trains 1-shot
+        "name": sample["name"],
+    }
 
 
 def carpk_test_sample(sample: Dict) -> Dict:

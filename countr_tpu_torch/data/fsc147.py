@@ -233,20 +233,26 @@ class TrainDataset:
     ``device_aug`` the host does only the uint8 geometry and ships the dot
     coordinates ({'image_u8', 'dots', 'n_dots', 'apply_photo', 'boxes',
     ...}); the photometric chain and the density run in the training
-    step (``countr_tpu_torch.ops.augment``)."""
+    step (``countr_tpu_torch.ops.augment``). With ``store_index`` (the
+    resident store's {image id: index}, ``engine/train_store.py``) the host
+    ships only the geometry's parameters and the dot coordinates
+    (``_store_item``): the card materialises the pixels."""
 
     # FSC147's densest image has ~3.7k dots, and a 384 crop can hold all
     # of them; int16 coordinates: 16 KB a sample.
     MAX_DEVICE_DOTS = 4096
 
     def __init__(self, meta: FSC147Meta, split: str = "train", do_aug: bool = True,
-                 seed: int = 0, device_aug: bool = False):
+                 seed: int = 0, device_aug: bool = False,
+                 store_index: Optional[Dict[str, int]] = None):
         self.meta = meta
         self.ids = meta.splits[split]
         self.do_aug = do_aug
         self.seed = seed
         self.epoch = 0
         self.device_aug = device_aug and do_aug
+        self.store_index = store_index
+        self.store_mode = store_index is not None and do_aug
         # decode + resize are deterministic per image: epochs 2+ hit this
         self._cache = ImageCache()
         self._dims_cache: Dict[str, Tuple[int, int, float, float]] = {}
@@ -467,12 +473,63 @@ class TrainDataset:
                 "apply_photo": apply_photo, "boxes": boxes, "rects": [], "m_flag": m_flag,
                 "name": im_id}
 
+    # -- resident-store parameter path -------------------------------------
+
+    def _store_item(self, rng, im_id: str, anno: Dict) -> Dict:
+        """Parameters-only sample of the resident-store mode
+        (``engine/train_store.py``): the card materialises the pixels; the
+        host ships ~100 bytes of geometry and the dot coordinates. The same
+        draws, in the same order, as the JAX package's."""
+        from countr_tpu_torch.engine.train_store import compose_affine
+
+        nh, nw, sy, sx = self._flex_dims(im_id)
+        dots = np.asarray(anno["points"], np.float64).reshape(-1, 2)
+        idx = self.store_index[im_id]
+        if rng.random() < 0.25:  # mosaic
+            cell_ids, tops, lefts, lens, bl, pts, m_flag = self._mosaic_params(
+                rng, im_id, dots, sy, sx, nh, nw)
+            cell_idx = np.asarray([self.store_index[c] for c in cell_ids], np.int32)
+            C, d = np.eye(2, dtype=np.float32), np.zeros(2, np.float32)
+            is_mosaic = np.float32(1.0)
+        else:
+            m_flag = 0
+            M = T.draw_affine_matrix(rng, nh, nw)
+            kps = self._scaled_dots(dots, sy, sx, nh, nw).astype(np.float64)
+            warped, in_bounds = T.warp_keypoints(M, kps, nh, nw)
+            pts = np.asarray(self._kept_dots(warped, in_bounds, nh, nw), np.int64).reshape(-1, 2)
+            flip = rng.random() > 0.5
+            if flip and pts.size:
+                pts[:, 0] = nw - 1 - pts[:, 0]
+            left = int(rng.integers(0, nw - 1 - 383 + 1))
+            top = int(rng.integers(0, nh - 1 - 383 + 1))
+            if pts.size:
+                sel = ((pts[:, 0] >= left) & (pts[:, 0] < left + IMG_SIZE)
+                       & (pts[:, 1] >= top) & (pts[:, 1] < top + IMG_SIZE))
+                pts = pts[sel] - np.asarray([left, top])
+            C, d = compose_affine(M, flip, left, top, nw)
+            cell_idx = np.full(4, idx, np.int32)
+            tops, lefts = np.zeros(4, np.int32), np.zeros(4, np.int32)
+            lens = np.full(4, IMG_SIZE, np.int32)
+            bl = 10
+            is_mosaic = np.float32(0.0)
+
+        k = min(pts.shape[0], self.MAX_DEVICE_DOTS)
+        dots_pad = np.zeros((self.MAX_DEVICE_DOTS, 2), np.int16)
+        dots_pad[:k] = pts[:k]
+        return {"img_idx": np.int32(idx), "affine_C": C, "affine_d": d,
+                "is_mosaic": is_mosaic, "cell_idx": cell_idx, "cell_top": tops,
+                "cell_left": lefts, "cell_len": lens, "blend_l": np.int32(bl),
+                "dots": dots_pad, "n_dots": np.int32(k), "m_flag": m_flag, "name": im_id,
+                "rects": []}
+
     # -- main ------------------------------------------------------------
 
     def __getitem__(self, idx: int) -> Dict:
         rng = _sample_rng(self.seed, self.epoch, idx)
         im_id = self.ids[idx]
         anno = self.meta.annotations[im_id]
+        if self.store_mode:
+            return self._store_item(rng, im_id, anno)
         if self.device_aug:
             return self._device_item(rng, im_id, anno)
         image, dots, sy, sx, nh, nw = self._load_resized(im_id)

@@ -33,6 +33,9 @@ _STACK_KEYS = (
     "image", "gt_density", "boxes",
     # device-augmentation geometry samples (TrainDataset(device_aug=True))
     "image_u8", "dots", "n_dots", "apply_photo",
+    # resident-store parameter samples (TrainDataset(store_index=...))
+    "img_idx", "affine_C", "affine_d", "is_mosaic", "cell_idx",
+    "cell_top", "cell_left", "cell_len", "blend_l",
 )
 
 # -- process-worker plumbing (one unpickled dataset per worker) ----------

@@ -17,7 +17,10 @@ under accumulation, kind of mini-step: the counterpart of ``jax.jit``.
 On the CPU, or with ``graphed=False``, the same step runs eagerly. With
 ``device_aug`` the finetune step runs the photometric augmentation and the
 density synthesis itself (``ops/augment.py``), inside its graph. The
-resident-store steps are not ported yet.
+resident-store steps (``make_store_finetune_step``, its pipelined pair,
+``make_store_eval_step`` and ``make_carpk_store_step``) materialise their
+batches from a store on the device (``engine/train_store.py``,
+``engine/carpk_store.py``) inside the same graphs.
 """
 
 from __future__ import annotations
@@ -31,7 +34,9 @@ from torch import nn
 from countr_tpu_torch.config import DENSITY_SCALE, TrainConfig
 from countr_tpu_torch.engine.schedule import warmup_cosine
 from countr_tpu_torch.models.vit import casts_at_use
-from countr_tpu_torch.ops.augment import augment_batch
+from countr_tpu_torch.ops.augment import (
+    augment_batch, density_from_dots, draw_photometric, photometric,
+)
 
 
 def decay_mask(model: nn.Module) -> Dict[str, bool]:
@@ -232,9 +237,9 @@ def _replay(runner, key, fn, *inputs) -> Dict:
 
 
 def _graphed_train_step(state: TrainState, device_step, generator, split):
-    """The step of ``make_finetune_step`` / ``make_pretrain_step`` on a
-    CUDA device. ``split(*args)`` gives a call's tensor inputs and static
-    arguments; ``device_step(*inputs, update=..., **static)`` is replayed
+    """The step of ``_train_step`` on a CUDA device. ``split(*args)``
+    gives a call's tensor inputs and static arguments;
+    ``device_step(*inputs, update=..., **static)`` is replayed
     from a graph keyed on the static arguments, the inputs' shapes and the
     kind of mini-step. Under accumulation each key has two graphs, one
     that accumulates and one that updates: the host knows which mini-step
@@ -246,7 +251,7 @@ def _graphed_train_step(state: TrainState, device_step, generator, split):
     ``step.runner`` counts the replays and their kernel launches."""
     from countr_tpu_torch.engine.graphs import GraphRunner
 
-    runner = GraphRunner(state.device, state.mutable, (generator,))
+    runner = GraphRunner(state.device, state.mutable, () if generator is None else (generator,))
 
     def graph(args, kw, update: bool):
         inputs, static = split(*args, **kw)
@@ -268,6 +273,33 @@ def _graphed_train_step(state: TrainState, device_step, generator, split):
 
     step.runner, step.capture = runner, capture
     return step
+
+
+def _train_step(state: TrainState, device_step, generator, graphed, split):
+    """step(*args) of a training mini-step: ``split(*args)`` gives the
+    call's tensor inputs and static arguments, ``device_step(*inputs,
+    update=..., **static)`` runs the device's part. Replayed from CUDA
+    graphs on a CUDA device (``graphed`` None or True,
+    ``_graphed_train_step``; ``generator``, if any, registered with each
+    graph); eagerly with ``graphed=False`` and on the CPU."""
+    if _resolve_graphed(state.device, graphed):
+        return _graphed_train_step(state, device_step, generator, split)
+
+    def step(*args, **kw) -> Dict:
+        inputs, static = split(*args, **kw)
+        update = state.begin_step()
+        m = device_step(*inputs, update=update, **static)
+        state.end_step(update)
+        return m
+
+    return step
+
+
+def _generator(state: TrainState, cfg: TrainConfig, generator) -> torch.Generator:
+    """``generator``, or one on the model's device seeded with ``cfg.seed``."""
+    if generator is None:
+        generator = torch.Generator(device=state.device).manual_seed(cfg.seed)
+    return generator
 
 
 def finetune_loss(model, imgs, gt, boxes, shot_num: int, mask):
@@ -339,9 +371,7 @@ def make_finetune_step(
     registered with each; ``step.capture(batch, shot_num)`` captures a
     shot's graphs ahead, ``step.runner`` counts the replays.
     ``graphed=False`` runs the same step eagerly, as on the CPU."""
-    gen = generator
-    if gen is None:
-        gen = torch.Generator(device=state.device).manual_seed(cfg.seed)
+    gen = _generator(state, cfg, generator)
     hw = state.model.cfg.img_size
     keys = DEVICE_AUG_KEYS if device_aug else FINETUNE_KEYS
 
@@ -353,49 +383,212 @@ def make_finetune_step(
         mask = loss_mask(hw, cfg.loss_mask_p, gen)
         return _finetune_device(state, imgs, gt, ins[-1], shot_num, mask, update)
 
-    def inputs(batch, shot_num):
-        return tuple(batch[k] for k in keys)
+    return _train_step(state, device_step, gen, graphed, lambda batch, shot_num: (
+        tuple(batch[k] for k in keys), {"shot_num": shot_num}))
 
-    if _resolve_graphed(state.device, graphed):
-        return _graphed_train_step(
-            state, device_step, gen,
-            lambda batch, shot_num: (inputs(batch, shot_num), {"shot_num": shot_num}))
 
-    def step(batch, shot_num: int) -> Dict:
-        update = state.begin_step()
-        m = device_step(*inputs(batch, shot_num), shot_num=shot_num, update=update)
-        state.end_step(update)
-        return m
+# ---------------------------------------------------------------------------
+# Resident-store steps (engine/train_store.py, engine/carpk_store.py)
+# ---------------------------------------------------------------------------
 
+STORE_KEYS = ("img_idx", "affine_C", "affine_d", "is_mosaic", "cell_idx", "cell_top",
+              "cell_left", "cell_len", "blend_l", "dots", "n_dots")
+CARRY_KEYS = ("imgs", "gt", "boxes", "mask")
+CARPK_KEYS = ("img_idx", "bx0", "bx1", "bwx", "by0", "by1", "bwy", "ex_valid")
+
+
+def materialize_train_batch(store_arrays: Mapping, geo: Mapping, generator: torch.Generator,
+                            hw: int, loss_mask_p: float, n_mosaic=None) -> Dict:
+    """A store batch's training inputs, on the store's device (the JAX
+    ``_materialize_train_batch``): the pixels materialised from the pool
+    (affine or mosaic), the photometric chain on the samples that are not
+    mosaics (reference: util/FSC147.py:177-255, mosaic cells stay clean),
+    the densities from the dot coordinates, and the batch's loss mask.
+    The generator draws the photometric factors, then the mask: the
+    pipelined step materialises batch j + 1 before it trains batch j and
+    carries the mask, so that it draws what the serial step draws, in the
+    same order. Returns {'imgs', 'gt', 'boxes', 'mask'} (``CARRY_KEYS``)."""
+    from countr_tpu_torch.engine.train_store import materialize_batch
+
+    imgs, boxes = materialize_batch(store_arrays, geo, n_mosaic)
+    b, h, w = imgs.shape[:3]
+    draws = draw_photometric(b, h, w, generator)
+    clean = geo["is_mosaic"].reshape(b, 1, 1, 1) > 0
+    imgs = torch.where(clean, imgs, photometric(imgs, draws))
+    gt = density_from_dots(geo["dots"], geo["n_dots"], h, w)
+    return {"imgs": imgs, "gt": gt, "boxes": boxes,
+            "mask": loss_mask(hw, loss_mask_p, generator)}
+
+
+def make_store_finetune_step(
+    state: TrainState, cfg: TrainConfig, store_arrays: Mapping,
+    generator: torch.Generator | None = None, graphed: bool | None = None, n_mosaic=None,
+) -> Callable[[Mapping[str, torch.Tensor], int], Dict]:
+    """Returns step(batch, shot_num) -> metrics: the resident-store
+    finetune step (the JAX ``make_store_finetune_step``). batch holds only
+    the geometry (``STORE_KEYS``, from ``TrainDataset(store_index=...)``)
+    on the store's device; the step materialises the pixels from
+    ``store_arrays`` (``TrainStore.arrays``, read in place: a graph holds
+    their addresses, never a copy), augments, synthesises the densities,
+    then trains (``materialize_train_batch``). Graphs, the generator and
+    ``graphed`` as in ``make_finetune_step``."""
+    gen = _generator(state, cfg, generator)
+    hw = state.model.cfg.img_size
+
+    def device_step(*ins, shot_num: int, update: bool) -> Dict:
+        c = materialize_train_batch(store_arrays, dict(zip(STORE_KEYS, ins)), gen, hw,
+                                    cfg.loss_mask_p, n_mosaic)
+        return _finetune_device(state, c["imgs"], c["gt"], c["boxes"], shot_num, c["mask"],
+                                update)
+
+    return _train_step(state, device_step, gen, graphed, lambda batch, shot_num: (
+        tuple(batch[k] for k in STORE_KEYS), {"shot_num": shot_num}))
+
+
+def make_store_materialize(
+    state: TrainState, cfg: TrainConfig, store_arrays: Mapping,
+    generator: torch.Generator | None = None, graphed: bool | None = None, n_mosaic=None,
+) -> Callable[[Mapping[str, torch.Tensor]], Dict]:
+    """Returns materialize(batch) -> carry (``CARRY_KEYS``): a store
+    batch's training inputs (``materialize_train_batch``), which prime the
+    pipelined step. On a CUDA device (``graphed`` None or True) replayed
+    from one CUDA graph per batch shape (``materialize.capture(batch)``),
+    the generator registered with it; the carry is a copy out of the
+    graph's pool."""
+    gen = _generator(state, cfg, generator)
+    hw = state.model.cfg.img_size
+
+    def device_fn(*ins) -> Dict:
+        with torch.no_grad():
+            return materialize_train_batch(store_arrays, dict(zip(STORE_KEYS, ins)), gen, hw,
+                                           cfg.loss_mask_p, n_mosaic)
+
+    def inputs(batch):
+        return tuple(batch[k] for k in STORE_KEYS)
+
+    if not _resolve_graphed(state.device, graphed):
+        return lambda batch: device_fn(*inputs(batch))
+
+    from countr_tpu_torch.engine.graphs import GraphRunner
+
+    runner = GraphRunner(state.device, generators=(gen,))
+
+    def materialize(batch) -> Dict:
+        ins = inputs(batch)
+        return _replay(runner, _shapes(*ins), device_fn, *ins)
+
+    def capture(batch) -> None:
+        ins = inputs(batch)
+        runner.capture(_shapes(*ins), device_fn, *ins)
+
+    materialize.runner, materialize.capture = runner, capture
+    return materialize
+
+
+def make_store_finetune_step_pipelined(
+    state: TrainState, cfg: TrainConfig, store_arrays: Mapping,
+    generator: torch.Generator | None = None, graphed: bool | None = None, n_mosaic=None,
+) -> Callable:
+    """Returns step(carry, next_batch, shot_num) -> (metrics, next_carry):
+    the software-pipelined resident step (the JAX
+    ``make_store_finetune_step_pipelined``). It trains on the carried batch,
+    materialised one call earlier, and materialises ``next_batch``, in one
+    graph per shot on a CUDA device. shot_num applies to the carried batch.
+    The trajectory is the serial step's one batch behind, to the bit: batch
+    j trains on the same pixels, photometric factors and loss mask, since
+    the generator draws batch j's factors and mask when batch j is
+    materialised (``materialize_train_batch``). Prime the first carry with
+    ``make_store_materialize``; train the last carry of an epoch with
+    ``make_store_train_phase``. ``step.capture(carry, batch, shot_num)``
+    and ``step.runner`` as for the other steps."""
+    gen = _generator(state, cfg, generator)
+    hw = state.model.cfg.img_size
+    n = len(CARRY_KEYS)
+
+    def device_step(*ins, shot_num: int, update: bool) -> Dict:
+        imgs, gt, boxes, mask = ins[:n]
+        m = _finetune_device(state, imgs, gt, boxes, shot_num, mask, update)
+        with torch.no_grad():
+            c = materialize_train_batch(store_arrays, dict(zip(STORE_KEYS, ins[n:])), gen, hw,
+                                        cfg.loss_mask_p, n_mosaic)
+        return {**m, **{"next_" + k: v for k, v in c.items()}}
+
+    inner = _train_step(state, device_step, gen, graphed, lambda carry, batch, shot_num: (
+        tuple(carry[k] for k in CARRY_KEYS) + tuple(batch[k] for k in STORE_KEYS),
+        {"shot_num": shot_num}))
+
+    def step(carry, batch, shot_num: int):
+        out = inner(carry, batch, shot_num)
+        return ({k: v for k, v in out.items() if not k.startswith("next_")},
+                {k: out["next_" + k] for k in CARRY_KEYS})
+
+    if hasattr(inner, "runner"):
+        step.runner, step.capture = inner.runner, inner.capture
     return step
 
 
-def make_eval_step(model: nn.Module, graphed: bool | None = None):
-    """Returns eval(batch, shot_num) -> masked error SUMS ``err_sum``,
-    ``sq_sum``, ``nae_sum`` and ``n`` (reference val loop:
-    FSC_finetune_cross.py:328-350); ``batch["valid"]`` masks padding
-    samples. On a CUDA device (``graphed`` None or True) it is replayed
-    from a CUDA graph per batch shape and ``shot_num`` (``eval.capture(batch,
-    shot_num)`` captures one ahead, ``eval.runner`` counts), with the bf16
-    casts of the weights inside the graph, so that the graph stays valid
-    while training changes the weights; ``graphed=False`` runs it
-    eagerly, as on the CPU."""
+def make_store_train_phase(state: TrainState, cfg: TrainConfig,
+                           graphed: bool | None = None) -> Callable[[Mapping, int], Dict]:
+    """Returns train(carry, shot_num) -> metrics: the pipelined step's
+    train half alone (the JAX ``make_store_train_phase``), for the last
+    carried batch of an epoch. It draws nothing (the carry holds its loss
+    mask); one graph per shot on a CUDA device."""
 
-    def device_eval(image, gt, boxes, valid, *, shot_num: int) -> Dict:
-        out = model(image, boxes, shot_num)
-        gt = gt.float()
-        err = count_errors(out, gt)
-        gt_cnt = gt.sum(dim=(1, 2)) / DENSITY_SCALE
-        nae = torch.where(gt_cnt > 0, err / gt_cnt.clamp_min(1e-9), torch.zeros_like(err))
-        v = valid.float()
-        return {"err_sum": (err * v).sum(), "sq_sum": (err.square() * v).sum(),
-                "nae_sum": (nae * v).sum(), "n": v.sum()}
+    def device_step(imgs, gt, boxes, mask, *, shot_num: int, update: bool) -> Dict:
+        return _finetune_device(state, imgs, gt, boxes, shot_num, mask, update)
 
-    def inputs(batch):
-        return batch["image"], batch["gt_density"], batch["boxes"], batch["valid"]
+    return _train_step(state, device_step, None, graphed, lambda carry, shot_num: (
+        tuple(carry[k] for k in CARRY_KEYS), {"shot_num": shot_num}))
 
-    dev = next(model.parameters()).device
-    if not _resolve_graphed(dev, graphed):
+
+def make_carpk_store_step(
+    state: TrainState, cfg: TrainConfig, store_arrays: Mapping,
+    generator: torch.Generator | None = None, graphed: bool | None = None,
+) -> Callable[[Mapping[str, torch.Tensor]], Dict]:
+    """Returns step(batch) -> metrics: the resident CARPK finetune step
+    (the JAX ``make_carpk_store_step``). batch holds an image index and the
+    random exemplar's crop maps (``CARPK_KEYS``, from
+    ``carpk_store.exemplar_geometry``); the 384x384 resize and crop, the
+    density and the exemplar resize run in the step from the resident uint8
+    originals (``store_arrays``: ``CarpkStore.arrays``). shot_num is 1 and
+    the CLI sets ``loss_mask_p`` 1.0, the reference's unmasked loss
+    (reference: FSC_finetune_CARPK.py:242, :250-252). One graph on a CUDA
+    device."""
+    from countr_tpu_torch.engine.carpk_store import materialize_carpk_batch
+
+    gen = _generator(state, cfg, generator)
+    hw = state.model.cfg.img_size
+
+    def device_step(*ins, shot_num: int, update: bool) -> Dict:
+        geo = dict(zip(CARPK_KEYS, ins))
+        imgs, boxes = materialize_carpk_batch(store_arrays, geo)
+        idx = geo["img_idx"].long()
+        gt = density_from_dots(store_arrays["dots"][idx], store_arrays["n_dots"][idx])
+        mask = loss_mask(hw, cfg.loss_mask_p, gen)
+        return _finetune_device(state, imgs, gt, boxes, shot_num, mask, update)
+
+    return _train_step(state, device_step, gen, graphed, lambda batch: (
+        tuple(batch[k] for k in CARPK_KEYS), {"shot_num": 1}))
+
+
+def _error_sums(pred_cnt: torch.Tensor, gt_cnt: torch.Tensor, valid: torch.Tensor) -> Dict:
+    """The eval steps' masked error sums over the samples with ``valid``."""
+    err = (pred_cnt - gt_cnt).abs()
+    nae = torch.where(gt_cnt > 0, err / gt_cnt.clamp_min(1e-9), torch.zeros_like(err))
+    v = valid.float()
+    return {"err_sum": (err * v).sum(), "sq_sum": (err.square() * v).sum(),
+            "nae_sum": (nae * v).sum(), "n": v.sum()}
+
+
+def _eval_step(device: torch.device, device_eval, inputs, graphed):
+    """eval(batch, shot_num) of ``device_eval(*inputs(batch), shot_num=)``,
+    without autograd: replayed from a CUDA graph per batch shape and
+    ``shot_num`` on a CUDA device (``graphed`` None or True;
+    ``eval.capture(batch, shot_num)`` captures one ahead, ``eval.runner``
+    counts), with the bf16 casts of the weights inside the graph, so that
+    it stays valid while training changes the weights; eagerly with
+    ``graphed=False`` and on the CPU."""
+    if not _resolve_graphed(device, graphed):
         @torch.inference_mode()
         def eval_fn(batch, shot_num: int) -> Dict:
             return device_eval(*inputs(batch), shot_num=shot_num)
@@ -404,7 +597,7 @@ def make_eval_step(model: nn.Module, graphed: bool | None = None):
 
     from countr_tpu_torch.engine.graphs import GraphRunner
 
-    runner = GraphRunner(dev)
+    runner = GraphRunner(device)
 
     def graph(batch, shot_num: int):
         ins = inputs(batch)
@@ -425,6 +618,42 @@ def make_eval_step(model: nn.Module, graphed: bool | None = None):
     return eval_fn
 
 
+def make_eval_step(model: nn.Module, graphed: bool | None = None):
+    """Returns eval(batch, shot_num) -> masked error SUMS ``err_sum``,
+    ``sq_sum``, ``nae_sum`` and ``n`` (reference val loop:
+    FSC_finetune_cross.py:328-350) of batch {'image', 'gt_density',
+    'boxes', 'valid'}; ``valid`` masks padding samples. Graphs as in
+    ``_eval_step``."""
+
+    def device_eval(image, gt, boxes, valid, *, shot_num: int) -> Dict:
+        out = model(image, boxes, shot_num)
+        gt = gt.float()
+        return _error_sums(out.sum(dim=(1, 2)) / DENSITY_SCALE,
+                           gt.sum(dim=(1, 2)) / DENSITY_SCALE, valid)
+
+    return _eval_step(next(model.parameters()).device, device_eval, lambda batch: (
+        batch["image"], batch["gt_density"], batch["boxes"], batch["valid"]), graphed)
+
+
+def make_store_eval_step(model: nn.Module, val_arrays: Mapping, graphed: bool | None = None):
+    """Returns eval(batch, shot_num) -> the sums of ``make_eval_step`` over
+    the resident validation samples (``ValStore.arrays``) at batch['idxs']
+    [B], with batch['valid'] [B] (the JAX ``make_store_eval_step``): the
+    per-epoch upload is the index vectors. The true counts are the store's
+    precomputed ones. Graphs as in ``_eval_step``."""
+    from countr_tpu_torch.engine.train_store import INV_255
+
+    def device_eval(idxs, valid, *, shot_num: int) -> Dict:
+        idxs = idxs.long()
+        imgs = val_arrays["images"][idxs].float() * INV_255
+        out = model(imgs, val_arrays["boxes"][idxs], shot_num)
+        return _error_sums(out.sum(dim=(1, 2)) / DENSITY_SCALE, val_arrays["gt_cnt"][idxs],
+                           valid)
+
+    return _eval_step(next(model.parameters()).device, device_eval,
+                      lambda batch: (batch["idxs"], batch["valid"]), graphed)
+
+
 def make_pretrain_step(
     state: TrainState, cfg: TrainConfig, generator: torch.Generator | None = None,
     graphed: bool | None = None,
@@ -440,9 +669,7 @@ def make_pretrain_step(
     step is replayed from a CUDA graph per input shape and kind of
     mini-step (``step.capture(imgs, noise)``, ``step.runner`` as for the
     finetune step); ``graphed=False`` runs it eagerly, as on the CPU."""
-    gen = generator
-    if gen is None:
-        gen = torch.Generator(device=state.device).manual_seed(cfg.seed)
+    gen = _generator(state, cfg, generator)
 
     def device_step(imgs, *noise, update: bool) -> Dict:
         state.zero_grads()
@@ -452,20 +679,8 @@ def make_pretrain_step(
         state.apply_gradients(update)
         return {"loss": loss.detach()}
 
-    def inputs(imgs, noise=None):
-        return (imgs,) if noise is None else (imgs, noise)
-
-    if _resolve_graphed(state.device, graphed):
-        return _graphed_train_step(state, device_step, gen,
-                                   lambda *a, **kw: (inputs(*a, **kw), {}))
-
-    def step(imgs, noise=None) -> Dict:
-        update = state.begin_step()
-        m = device_step(*inputs(imgs, noise), update=update)
-        state.end_step(update)
-        return m
-
-    return step
+    return _train_step(state, device_step, gen, graphed, lambda imgs, noise=None: (
+        (imgs,) if noise is None else (imgs, noise), {}))
 
 
 ENCODER_PREFIXES = ("patch_embed.", "norm.")

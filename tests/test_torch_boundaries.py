@@ -28,7 +28,8 @@ def _modules():
 def test_imports_no_jax():
     mods = _modules()
     for m in ("engine.inference", "native", "data.imcache", "data.loader", "data.fsc147",
-              "ops.augment", "cli.finetune"):
+              "ops.augment", "cli.finetune", "engine.train_store", "engine.carpk_store",
+              "cli.finetune_carpk"):
         assert f"countr_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -55,10 +56,13 @@ def test_entry_points_default_to_cuda():
                          decoder_num_heads=2, head_width=8)
     with pytest.raises(RuntimeError, match="CUDA"):
         CountingEngine(model)
-    from countr_tpu_torch.cli import common, demo, finetune, serve, test, test_carpk
+    from countr_tpu_torch.cli import (
+        common, demo, finetune, finetune_carpk, serve, test, test_carpk,
+    )
 
     for args in (test.get_args([]), serve.get_args([]), test_carpk.get_args([]),
-                 demo.get_args(["--input_path", "x.jpg"]), finetune.get_args([])):
+                 demo.get_args(["--input_path", "x.jpg"]), finetune.get_args([]),
+                 finetune_carpk.get_args([])):
         assert args.device == "cuda"
         with pytest.raises(RuntimeError, match="CUDA"):
             common.build_counting_model(args)

@@ -19,8 +19,15 @@ CLIs' TrainConfig; the program keeps the reference's 0.8.
 - ``--do_resume`` from epoch 2 equals the uninterrupted run bit for bit,
   port against port, at the program's own loss_mask_p.
 - ``--init_from_mae`` from a ``.pth`` gives JAX's encoder.
-- ``--resident_data``, ``--resident_pipeline`` and ``--n_devices 2``
-  raise, naming their ROADMAP item.
+- ``--resident_data``: 2 epochs whose geometry batches, train shots,
+  validation indices and validation shots equal the JAX resident CLI's bit
+  for bit (the JAX side's steps replaced by recorders: its photometric
+  factors and loss masks are ``jax.random`` draws, so its losses are not
+  the port's); the resident validation's sums equal the host validation's
+  on the same weights within rel 1e-5; ``--do_resume`` (also with
+  ``--resident_pipeline``) equals the uninterrupted run bit for bit, and
+  ``--resident_pipeline`` the serial run.
+- ``--n_devices 2`` raises, naming its ROADMAP item.
 """
 
 import argparse
@@ -119,7 +126,9 @@ def _stats(stats):
     return [{k: v for k, v in s.items() if k != "epoch_time_s"} for s in stats]
 
 
-@pytest.mark.parametrize("extra", [(), ("--device_aug",)], ids=["host_aug", "device_aug"])
+@pytest.mark.parametrize("extra", [(), ("--device_aug",), ("--resident_data",),
+                                   ("--resident_data", "--resident_pipeline")],
+                         ids=["host_aug", "device_aug", "resident", "resident_pipeline"])
 def test_resume_equals_uninterrupted(fsc_dir, pth, tmp_path, extra):  # noqa: F811
     """Epochs 0-1, then a --do_resume run for epoch 2, against the same 3
     epochs in one run: the same stats and weights, bit for bit (the step's
@@ -188,9 +197,99 @@ def test_init_from_mae_gives_jax_encoder(fsc_dir, pth, tmp_path, source):  # noq
                                   "blocks.0.attn.qkv.weight"])
 
 
-@pytest.mark.parametrize("flag,item", [(("--resident_data",), "item 6"),
-                                       (("--resident_pipeline",), "item 6"),
-                                       (("--n_devices", "2"), "item 8")])
+@pytest.mark.parametrize("flag,item", [(("--n_devices", "2"), "item 8")])
 def test_unported_flags_raise(fsc_dir, pth, tmp_path, flag, item):  # noqa: F811
     with pytest.raises(ValueError, match=item):
         tft.main(tft.get_args(port_argv(fsc_dir, pth, str(tmp_path / "o"), *flag)))
+
+
+def _np(batch, keys):
+    return {k: np.asarray(batch[k]) for k in keys}
+
+
+def test_resident_streams_match_jax(fsc_dir, pth, monkeypatch):  # noqa: F811
+    """The geometry and shot streams of 2 resident epochs, and the
+    validation's indices and shots, against the JAX resident CLI's."""
+    import jax.numpy as jnp
+
+    from countr_tpu_torch.engine.train import STORE_KEYS
+
+    want = {"train": [], "val": []}
+
+    def jax_store_step(model, cfg):
+        def step(state, arrays, batch, rng, shot_num):
+            want["train"].append((_np(batch, STORE_KEYS), shot_num))
+            return state, {k: jnp.zeros(()) for k in ("loss", "mae", "mse")}
+        return step
+
+    def jax_store_eval(model):
+        def eval_fn(params, arrays, idxs, valid, shot_num):
+            want["val"].append((np.asarray(idxs), np.asarray(valid), shot_num))
+            return {k: jnp.zeros(()) for k in ("err_sum", "sq_sum", "nae_sum", "n")}
+        return eval_fn
+
+    monkeypatch.setattr(jtrain, "make_store_finetune_step", jax_store_step)
+    monkeypatch.setattr(jtrain, "make_store_eval_step", jax_store_eval)
+    jargs = jax_args(fsc_dir, pth, "", no_aug=False)
+    jargs.resident_data = True
+    jft.main(jargs)
+
+    got = {"train": [], "val": []}
+    ft = tft.Finetune(tft.get_args(port_argv(fsc_dir, pth, "", "--resident_data")))
+    step, ev = ft.train_step, ft.eval_step
+
+    def spy_step(batch, shot_num):
+        got["train"].append((_np(batch, STORE_KEYS), shot_num))
+        return step(batch, shot_num)
+
+    def spy_eval(batch, shot_num):
+        got["val"].append((batch["idxs"].numpy(), batch["valid"].numpy(), shot_num))
+        return ev(batch, shot_num)
+
+    ft.train_step, ft.eval_step = spy_step, spy_eval
+    stats = ft.run()
+    assert len(got["train"]) == len(want["train"]) == 4
+    assert len(got["val"]) == len(want["val"]) == 2
+    for (g, gs), (w, ws) in zip(got["train"], want["train"]):
+        assert gs == ws
+        for k in STORE_KEYS:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+            assert g[k].dtype == w[k].dtype, k
+    for (gi, gv, gs), (wi, wv, ws) in zip(got["val"], want["val"]):
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(gv, wv)
+        assert gs == ws
+    assert {float(b["is_mosaic"].max()) for b, _ in got["train"]} <= {0.0, 1.0}
+    assert all(np.isfinite([v for r in stats for v in r.values()]))
+
+
+def test_resident_validation_equals_host(fsc_dir, pth):  # noqa: F811
+    """The resident ValStore's sums against the host loader's validation
+    on the same weights, at the same shots."""
+    import random
+
+    res = tft.Finetune(tft.get_args(port_argv(fsc_dir, pth, "", "--resident_data")))
+    host = tft.Finetune(tft.get_args(port_argv(fsc_dir, pth, "")))
+    try:
+        for seed in (0, 1):
+            a = res.validate(random.Random(seed))
+            b = host.validate(random.Random(seed))
+            assert a["n"] == b["n"] == 1.0
+            for k in ("err_sum", "sq_sum", "nae_sum"):
+                assert a[k] == pytest.approx(b[k], rel=REL), (seed, k)
+    finally:
+        res.close()
+        host.close()
+
+
+def test_resident_pipeline_equals_serial(fsc_dir, pth, tmp_path):  # noqa: F811
+    def run(*extra):
+        ft = tft.Finetune(tft.get_args(port_argv(fsc_dir, pth, "", "--resident_data", *extra)))
+        return _stats(ft.run()), [p.detach().clone() for p in ft.model.parameters()]
+
+    serial, ws = run()
+    piped, wp = run("--resident_pipeline")
+    assert piped == serial
+    assert serial[0]["train/loss"] != serial[1]["train/loss"]
+    for p, q in zip(wp, ws):
+        assert torch.equal(p, q)

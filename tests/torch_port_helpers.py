@@ -21,14 +21,17 @@ TINY = dict(
 BF16_FAST = dict(use_pallas_attention=True, approx_gelu=True, subpixel_head=True)
 
 
-def jax_model(seed: int = 0, mode: str = "fp32", **kw):
+def jax_model(seed: int = 0, mode: str = "fp32", jit: bool = False, **kw):
     """(model, params) of a tiny JAX CounTR; params are randomised well
-    beyond the init (non-trivial LN/GN affines and biases)."""
+    beyond the init (non-trivial LN/GN affines and biases). ``jit`` runs
+    the init compiled (seconds where the eager init takes ~15 s at 384; its
+    values may differ from the eager init's in the last bits)."""
     dt = jnp.bfloat16 if mode == "bf16" else jnp.float32
     extra = BF16_FAST if mode == "bf16" else {}
     cfg = JaxConfig(**{**TINY, **kw, **extra, "dtype": dt})
     model = JaxCounTR(cfg)
-    params = model.init(
+    init = jax.jit(model.init, static_argnums=3) if jit else model.init
+    params = init(
         jax.random.key(seed), jnp.zeros((1, 384, 384, 3)),
         jnp.zeros((1, 3, 64, 64, 3)), 3,
     )
