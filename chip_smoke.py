@@ -152,10 +152,33 @@ Phases, one line each on stdout:
      uninterrupted one, then --resident_pipeline (its materialise, pipelined
      and train-phase graphs: 0, and 44 / 18 / 6 per replay) against the
      serial run, each to the bit, with its step ms beside the serial one's;
-  19. store_pool: materialize_batch alone on a pool of FSC147's size made
+  19. pretrain_cli: countr_tpu_torch.cli.pretrain on the same tree at the
+     full width of mae_vit_base_patch16 in the bf16 build (B1, B3/B4, B2
+     off), batch 16, 6 steps an epoch: as a subprocess for one epoch of 2
+     steps (exit code, a finite loss), then in this process on the host
+     path (PIL's RandomResizedCrop on the loader's 8 threads) and with
+     --resident_data (the column-major uint8 pool on the card, crop scalars
+     from the host), each with its graph captured first and the counters at
+     0 for 2 epochs (B1 42, B3 20, B4 20 per replay, no eager launch, no
+     capture during the epochs); loader-fed images/s of a timed epoch, the
+     idle share of a profiled epoch, the graphed step's ms on a batch
+     already on the card, the host's ms a sample (one thread, the loader's
+     8), the upload's bytes a batch; four graphed steps against four eager
+     ones (the same losses to the bit); a run stopped after epoch 0 and
+     resumed against the uninterrupted one (the same stats and weights, to
+     the bit; the seconds and bytes of epoch 0's ckpt_last and ckpt_params
+     saves); on the host path the reconstruction panel (shape, range, ms)
+     and whether TensorBoard imports; on the resident path the
+     materialisation replayed from a graph and eager with the process's
+     TF32 flags on against eager with them off (the same bits), its ms and
+     the store's bytes;
+  20. store_pool: materialize_batch alone on a pool of FSC147's size made
      on the card (3659 random images at 384x512, ~2.2 GB uint8), batches of
      8 with 2 mosaics, eager and graph-replayed ms beside the bytes bound;
-  20. carpk_cli: countr_tpu_torch.cli.finetune_carpk on a local CARPK tree
+     then (the pretrain_pool line) materialize_pretrain_batch on the same
+     pixels as a pretrain store (max_w 512), batches of 16 crops, eager and
+     graph-replayed ms beside its fp32 operations bound and bytes bound;
+  21. carpk_cli: countr_tpu_torch.cli.finetune_carpk on a local CARPK tree
      of 8 PNGs at 720x1280, batch 1, on the host path and with
      --resident_data (engine/carpk_store.py): B1 44, B3 18, B4 6 per
      replay, no eager launch, no capture during 2 epochs; loader-fed
@@ -2122,6 +2145,8 @@ def finetune_cli_phase(torch, d: str):
     ``d``: the subprocess, the in-process host and --device_aug runs,
     graphed against eager, resumed against uninterrupted. Returns the host
     run's graph launches."""
+    import os
+
     from countr_tpu_torch.cli import finetune as cli
 
     t_phase = time.perf_counter()
@@ -2134,10 +2159,11 @@ def finetune_cli_phase(torch, d: str):
     # CLI steps from the same start (epoch 0's generator and shots)
     graphed4, eager4 = graphed_vs_eager(losses, lambda: cli.Finetune(finetune_args(d, ""),
                                                                      graphed=False))
-    resumed_at = resumed_vs_uninterrupted(torch, d, stats, weights)
+    resume = resumed_vs_uninterrupted(
+        torch, lambda out, *more: cli.Finetune(finetune_args(d, out, *more)),
+        os.path.join(d, "out_split"), stats, weights)
     say("finetune_cli", run="graphed_vs_eager_and_resume", graphed_losses=graphed4,
-        eager_losses=eager4, graphed_equals_eager=True, resumed_at=resumed_at,
-        resumed_equals_uninterrupted=True)
+        eager_losses=eager4, graphed_equals_eager=True, **resume)
     del weights
     torch.cuda.empty_cache()
 
@@ -2172,34 +2198,39 @@ def graphed_vs_eager(losses, make_twin, epoch0=fsc_epoch0, steps: int = 4):
     return graphed, eager
 
 
-def resumed_vs_uninterrupted(torch, d: str, stats, weights, *extra) -> int:
-    """Epoch 0 of a run that saves, then a fresh state resumed from
-    ckpt_last for epoch 1, against the uninterrupted run's ``stats`` and
-    ``weights``: the same stats and weights, to the bit. Returns the epoch
-    the resumed run started at; raises otherwise."""
-    import os
+def resumed_vs_uninterrupted(torch, make, out: str, stats, weights) -> dict:
+    """Epoch 0 of a CLI run ``make(out)`` that saves, then a fresh run
+    ``make(out, "--do_resume")`` resumed from its ckpt_last for the epochs
+    after, against the uninterrupted run's ``stats`` and ``weights``: the
+    same stats and weights, to the bit. Returns the epoch the resumed run
+    started at and the seconds of epoch 0's checkpoint saves; raises
+    otherwise."""
+    first = make(out)
+    keep, saves = first._keep, []
 
-    from countr_tpu_torch.cli import finetune as cli
+    def timed_keep(*args):
+        t0 = time.perf_counter()
+        keep(*args)
+        saves.append(time.perf_counter() - t0)
 
-    out = os.path.join(d, "out_split" + "_".join(e.strip("-") for e in extra))
-    first = cli.Finetune(finetune_args(d, out, *extra))
+    first._keep = timed_keep
     head = first.run_epoch(0)
     first.close()
     del first
     torch.cuda.empty_cache()
-    resumed = cli.Finetune(finetune_args(d, out, "--do_resume", *extra))
+    resumed = make(out, "--do_resume")
     tail = resumed.run()
     drop = lambda r: {k: v for k, v in r.items() if k != "epoch_time_s"}  # noqa: E731
     same_stats = [drop(r) for r in [head, *tail]] == [drop(r) for r in stats]
     same_weights = all(torch.equal(p, q) for p, q in zip(resumed.model.parameters(), weights,
                                                            strict=True))
     if resumed.start_epoch != 1 or not same_stats or not same_weights:
-        raise AssertionError(f"finetune_cli {extra}: resumed at {resumed.start_epoch}, stats "
+        raise AssertionError(f"{out}: resumed at {resumed.start_epoch}, stats "
                              f"{[head, *tail]} against {stats}, weights equal {same_weights}")
     start = resumed.start_epoch
     del resumed
     torch.cuda.empty_cache()
-    return start
+    return dict(resumed_at=start, resumed_equals_uninterrupted=True, epoch0_save_s=saves[0])
 
 
 NO_LAUNCHES = dict.fromkeys(FT_TRAIN_LAUNCHES, 0)
@@ -2326,6 +2357,8 @@ def resident_cli_phase(torch, d: str):
     against uninterrupted, and the --resident_pipeline run against the
     serial one, each to the bit. Returns the serial and pipelined runs'
     graph launches together."""
+    import os
+
     from countr_tpu_torch.cli import finetune as cli
 
     t_phase = time.perf_counter()
@@ -2334,7 +2367,9 @@ def resident_cli_phase(torch, d: str):
     say("resident_cli", run="in-process", **line)
     graphed4, eager4 = graphed_vs_eager(losses, lambda: cli.Finetune(
         finetune_args(d, "", "--resident_data"), graphed=False))
-    resumed_at = resumed_vs_uninterrupted(torch, d, stats, weights, "--resident_data")
+    resume = resumed_vs_uninterrupted(
+        torch, lambda out, *more: cli.Finetune(finetune_args(d, out, "--resident_data", *more)),
+        os.path.join(d, "out_split_resident_data"), stats, weights)
     p_stats, p_weights, _, p_launches, p_line = resident_inprocess(torch, d, pipelined=True)
     say("resident_cli", run="in-process", **p_line)
     drop = lambda r: {k: v for k, v in r.items() if k != "epoch_time_s"}  # noqa: E731
@@ -2344,13 +2379,198 @@ def resident_cli_phase(torch, d: str):
         raise AssertionError(f"resident_cli: pipelined stats {p_stats} against serial {stats}, "
                              f"weights equal {same_weights}")
     say("resident_cli", run="graphed_vs_eager_resume_pipelined", graphed_losses=graphed4,
-        eager_losses=eager4, graphed_equals_eager=True, resumed_at=resumed_at,
-        resumed_equals_uninterrupted=True, pipelined_equals_serial=True,
+        eager_losses=eager4, graphed_equals_eager=True, **resume, pipelined_equals_serial=True,
         step_ms_serial=line["step_ms_on_card"], step_ms_pipelined=p_line["step_ms_on_card"])
     del weights, p_weights
     torch.cuda.empty_cache()
     say("resident_cli_done", seconds=time.perf_counter() - t_phase)
     return {k: launches[k] + p_launches[k] for k in launches}
+
+
+PT_STEPS = FT_TRAIN // PRETRAIN_BATCH  # the pretrain_cli phase's steps an epoch (6)
+
+
+def pretrain_args(d: str, out: str, *extra):
+    """The pretrain CLI's arguments on the synthetic tree ``d``: its
+    defaults (mae_vit_base_patch16, bf16, batch 16, 8 loader threads), 2
+    epochs."""
+    from countr_tpu_torch.cli import pretrain as cli
+
+    return cli.get_args(["--data_path", d, "--epochs", "2", "--log_every", "0",
+                         "--output_dir", out, *extra])
+
+
+def pretrain_subprocess(d: str) -> dict:
+    """The CLI as a user runs it: one epoch of 2 steps on the host path."""
+    import os
+    import re
+    import subprocess
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    sub = subprocess.run([sys.executable, "-m", "countr_tpu_torch.cli.pretrain", "--data_path",
+                          d, "--epochs", "1", "--limit_steps", "2", "--output_dir", ""],
+                         cwd=root, capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    m = re.search(r"\[Epoch 0\] loss (\S+)", sub.stdout)
+    if sub.returncode != 0 or m is None or not np.isfinite(float(m.group(1))):
+        raise AssertionError(f"cli.pretrain exited {sub.returncode}: {sub.stdout[-1500:]} "
+                             f"{sub.stderr[-1500:]}")
+    return dict(seconds=seconds, epoch0_loss=float(m.group(1)))
+
+
+def materialize_checks(torch, pt, batch) -> dict:
+    """The resident run's materialisation alone on a loader batch: replayed
+    from a CUDA graph and eager with the process's TF32 flags on, and eager
+    with them off, the same bits (its band products run in fp32 whatever
+    the flags); graphed and eager ms; the store's bytes."""
+    from countr_tpu_torch.bench import events_ms
+    from countr_tpu_torch.engine.graphs import GraphRunner
+    from countr_tpu_torch.engine.train_store import PRETRAIN_KEYS, materialize_pretrain_batch
+
+    arrays, max_w = pt.store.arrays, pt.store.max_w
+    ins = tuple(batch[k] for k in PRETRAIN_KEYS)
+
+    def fn(*xs):
+        return materialize_pretrain_batch(arrays, dict(zip(PRETRAIN_KEYS, xs)), max_w)
+
+    runner = GraphRunner(pt.device)
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        graphed = runner("m", fn, *ins).clone()
+        eager_tf32_on = fn(*ins)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        eager_tf32_off = fn(*ins)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    same = (torch.equal(graphed, eager_tf32_off), torch.equal(eager_tf32_on, eager_tf32_off))
+    if not all(same) or tuple(graphed.shape) != (PRETRAIN_BATCH, 384, 384, 3):
+        raise AssertionError(f"pretrain_cli: materialisation graphed / TF32 on against eager "
+                             f"TF32 off equal {same}, shape {tuple(graphed.shape)}")
+    return dict(materialize_graphed_equals_eager=True, materialize_tf32_flags_ignored=True,
+                materialize_graphed_ms=events_ms(lambda: runner("m", fn, *ins), iters=10),
+                materialize_eager_ms=events_ms(lambda: fn(*ins), iters=10),
+                store_bytes=pt.store.nbytes, store_max_w=max_w)
+
+
+def reconstruction_check(torch, pt, imgs) -> dict:
+    """The reconstruction panel (``cli/pretrain.py reconstruction_panel``,
+    eager, outside the counted run) of a loader batch: its shape, values
+    in [0, 1], its ms, and whether TensorBoard imports here (the CLI writes
+    the panel only where it does)."""
+    import tempfile
+
+    from countr_tpu_torch.cli.pretrain import reconstruction_panel
+    from countr_tpu_torch.utils.metrics import TBWriter
+
+    gen = torch.Generator(device=pt.device)
+    t0 = time.perf_counter()
+    panel = reconstruction_panel(pt.model, imgs, generator=gen.manual_seed(3))
+    ms = (time.perf_counter() - t0) * 1e3
+    if panel.shape != (384, 3 * 384, 3) or not (np.all(panel >= 0) and np.all(panel <= 1)):
+        raise AssertionError(f"pretrain_cli: reconstruction panel {panel.shape}, "
+                             f"range {panel.min()}..{panel.max()}")
+    with tempfile.TemporaryDirectory() as tb_dir:
+        tb = TBWriter(tb_dir)
+        enabled = tb.enabled
+        tb.flush()
+    return dict(reconstruction_panel_shape=list(panel.shape), reconstruction_panel_ms=ms,
+                tensorboard_imports=enabled)
+
+
+def pretrain_inprocess(torch, d: str, resident: bool):
+    """The pretrain CLI's run in this process, its graph captured first
+    and the counters at 0: launches per replay, no eager launch, no capture
+    during the 2 epochs; the loader-fed rate of a timed epoch, a profiled
+    epoch (idle share), the graphed step's ms on a batch already on the
+    card, the host's ms a sample (one thread; the loader's 8: PIL's crop
+    and resize, or on the resident path ``_store_item``); on the resident
+    path the materialisation's checks. Returns (stats, weights,
+    losses, launches, line)."""
+    from countr_tpu_torch.bench import events_ms
+    from countr_tpu_torch.cli import pretrain as cli
+    from countr_tpu_torch.data.loader import device_prefetch
+
+    path = "resident" if resident else "host"
+    extra = ("--resident_data",) if resident else ()
+    t0 = time.perf_counter()
+    pt = cli.Pretrain(pretrain_args(d, "", *extra))  # no output: no log, no checkpoints
+    build_s = time.perf_counter() - t0
+    graphs = pt.graphs()
+    losses = recorded_losses(pt)
+    runner = pt.train_step.runner
+    reset_counts()
+    runner.zero_counts()
+    stats = pt.run()
+    replays, per, eager = check_runners(
+        f"pretrain_cli ({path})", {"train": runner},
+        {"train": (2 * PT_STEPS, PRETRAIN_LAUNCHES[False])}, graphs, pt.graphs())
+    if not all(np.isfinite(r["train/loss"]) for r in stats):
+        raise AssertionError(f"pretrain_cli ({path}): stats {stats}")
+    weights = [p.detach().clone() for p in pt.model.parameters()]
+    launches = dict(runner.launched)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr = pt.train_epoch(2)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    prof = profile_run(torch, lambda: pt.train_epoch(3), 1)
+    batch = next(device_prefetch(pt.train_dl.epoch(4), pt.device, pt.batch_keys))
+    step_ms = events_ms(lambda: pt.train_step(pt._inputs(batch)), iters=8)
+    line = dict(path=path, graphs=graphs, capture_s=pt.capture_s, build_s=build_s,
+                epochs=stats, replays=replays, launches_per_replay=per, eager_launches=eager,
+                graphs_after=pt.graphs(), timed_epoch_steps=tr["steps"], timed_epoch_s=epoch_s,
+                loader_fed_images_per_s=tr["steps"] * PRETRAIN_BATCH / epoch_s,
+                step_ms_on_card=step_ms,
+                step_images_per_s_on_card=PRETRAIN_BATCH / step_ms * 1e3,
+                idle_share=prof["idle_share"], profile=prof, **host_rates(pt),
+                upload_bytes_per_batch=sum(batch[k].numel() * batch[k].element_size()
+                                           for k in pt.batch_keys))
+    if resident:
+        line.update(materialize_checks(torch, pt, batch))
+    else:
+        line.update(reconstruction_check(torch, pt, batch["image"]))
+    pt.close()
+    return stats, weights, losses, launches, line
+
+
+def pretrain_cli_phase(torch, d: str):
+    """countr_tpu_torch.cli.pretrain at full width (mae_vit_base_patch16,
+    bf16, batch 16) on the synthetic tree ``d``: a subprocess, then in this
+    process the host path and --resident_data, each graphed against eager
+    and resumed against uninterrupted. Returns each path's graph
+    launches."""
+    import os
+
+    from countr_tpu_torch.cli import pretrain as cli
+
+    t_phase = time.perf_counter()
+    say("pretrain_cli", run="subprocess", **pretrain_subprocess(d))
+    by_path = {}
+    for resident in (False, True):
+        extra = ("--resident_data",) if resident else ()
+        stats, weights, losses, launches, line = pretrain_inprocess(torch, d, resident)
+        torch.cuda.empty_cache()
+        graphed4, eager4 = graphed_vs_eager(
+            losses, lambda: cli.Pretrain(pretrain_args(d, "", *extra), graphed=False),
+            epoch0=lambda twin: twin.train_epoch(0))
+        out = os.path.join(d, "out_pt_split" + "_".join(e.strip("-") for e in extra))
+        line.update(graphed_losses=graphed4, eager_losses=eager4, graphed_equals_eager=True,
+                    **resumed_vs_uninterrupted(
+                        torch, lambda o, *more: cli.Pretrain(pretrain_args(d, o, *extra, *more)),
+                        out, stats, weights),
+                    kept={k: sorted(os.listdir(os.path.join(out, k)))
+                          for k in ("ckpt_periodic", "ckpt_last", "ckpt_params")},
+                    ckpt_bytes={k: os.path.getsize(os.path.join(out, k, "checkpoint-1.pth"))
+                                for k in ("ckpt_last", "ckpt_params")})
+        say("pretrain_cli", run="in-process", **line)
+        by_path["pretrain_cli_resident" if resident else "pretrain_cli"] = launches
+        del weights, losses
+        torch.cuda.empty_cache()
+    say("pretrain_cli_done", seconds=time.perf_counter() - t_phase)
+    return by_path
 
 
 POOL_IMAGES, POOL_H, POOL_W = 3659, 384, 512  # FSC147's train split, at 384x512
@@ -2363,14 +2583,18 @@ def store_pool_phase(torch, dev):
     them mosaics; every sample pays the mosaic path, n_mosaic None, as in
     the CLI), eager and replayed from one CUDA graph (CUDA events), beside
     the bytes bound: the output written once and each source pixel that
-    the batch's taps need read once."""
+    the batch's taps need read once. Then ``materialize_pretrain_batch`` on
+    the same pixels as the pretrain store's column-major layout
+    (``pretrain_pool``)."""
     from countr_tpu_torch.data import transforms as T
     from countr_tpu_torch.engine.train_store import compose_affine, materialize_batch
 
     n, h, w = POOL_IMAGES, POOL_H, POOL_W
     gen = torch.Generator(device=dev).manual_seed(0)
     arrays = {
-        "pixels": torch.randint(0, 256, (n * h * w + 384, 3), generator=gen, device=dev,
+        # the tail pad is the pretrain store's, w * 384 pixels (the finetune
+        # store's 384 is less)
+        "pixels": torch.randint(0, 256, (n * h * w + w * 384, 3), generator=gen, device=dev,
                                 dtype=torch.uint8),
         "exemplars": torch.randint(0, 256, (n, 3, 64, 64, 3), generator=gen, device=dev,
                                    dtype=torch.uint8),
@@ -2412,8 +2636,54 @@ def store_pool_phase(torch, dev):
                 affine_only_graphed_ms=graph_ms(torch, affine, arg_sets),
                 bound_ms=moved / H100_BYTES_PER_S * 1e3, bound_by="bytes", bytes_moved=moved)
     say("store_pool", **line)
+    pretrain_pool(torch, dev, {k: arrays[k] for k in ("pixels", "base")})
     del arrays, batches, arg_sets
     torch.cuda.empty_cache()
+
+
+H100_FP32_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM
+
+
+def pretrain_pool(torch, dev, arrays) -> None:
+    """``materialize_pretrain_batch`` alone on an FSC147-sized pretrain pool
+    (``pixels`` and ``base`` of the store_pool phase read as 3659 images
+    stored [512, 384], max_w 512), 8 batches of 16 RandomResizedCrop draws
+    (every 4th a portrait, stored transposed; random flips), eager and
+    replayed from one CUDA graph, beside its bounds: the two dense fp32
+    band products' operations (2 * 384 * 1152 * (max_w + 384) a sample) at
+    the card's fp32 rate without TF32, and the bytes (each crop's source
+    pixels read once, the float32 output written once)."""
+    from countr_tpu_torch.data.fsc147 import PretrainDataset
+    from countr_tpu_torch.engine.train_store import PRETRAIN_KEYS, materialize_pretrain_batch
+
+    max_w, b = POOL_W, PRETRAIN_BATCH
+    arrays = {**arrays, "width": torch.full((POOL_IMAGES,), max_w, device=dev)}
+    rng = np.random.default_rng(4)
+    batches, source_px = [], 0
+    for _ in range(8):
+        geo = {k: [] for k in PRETRAIN_KEYS}
+        for i in range(b):
+            transposed = int(i % 4 == 3)
+            h0, w0 = (max_w, 384) if transposed else (384, max_w)
+            top, left, ch, cw = PretrainDataset.sample_crop(rng, h0, w0)
+            if transposed:
+                top, left, ch, cw = left, top, cw, ch
+            for k, v in zip(PRETRAIN_KEYS, (int(rng.integers(0, POOL_IMAGES)), top, left, ch, cw,
+                                            transposed, int(rng.random() < 0.5))):
+                geo[k].append(v)
+            source_px += ch * cw
+        batches.append({k: torch.tensor(v, dtype=torch.int8 if k in ("transposed", "flip")
+                                        else torch.int32, device=dev) for k, v in geo.items()})
+    arg_sets = [(x,) for x in batches]
+    fn = lambda x: materialize_pretrain_batch(arrays, x, max_w)  # noqa: E731
+    flops = 2 * 384 * 384 * 3 * (max_w + 384) * b
+    moved = source_px / len(batches) * 3 + b * 384 * 384 * 3 * 4
+    tf, tb = flops / H100_FP32_FLOPS * 1e3, moved / H100_BYTES_PER_S * 1e3
+    say("pretrain_pool", pool_images=POOL_IMAGES, pool_bytes=int(arrays["pixels"].numel()),
+        max_w=max_w, batch=b, eager_ms=time_ms(torch, fn, arg_sets, iters=16),
+        graphed_ms=graph_ms(torch, fn, arg_sets), flops=flops, flop_bound_ms=tf,
+        bytes_moved=moved, bytes_bound_ms=tb, bound_ms=max(tf, tb),
+        bound_by="operations" if tf > tb else "bytes")
 
 
 CARPK_TRAIN = 8  # the carpk_cli phase's tree: PNGs at 720x1280
@@ -2562,6 +2832,7 @@ def main() -> int:
         synthetic_fsc(d)
         by_path["finetune_cli"] = finetune_cli_phase(torch, d)
         by_path["resident_cli"] = resident_cli_phase(torch, d)
+        by_path.update(pretrain_cli_phase(torch, d))
     store_pool_phase(torch, dev)
     by_path["carpk_cli"] = carpk_cli_phase(torch)
 

@@ -12,13 +12,16 @@ Reference behaviour map:
 - TestDataset == the test scripts' TestData
   (reference: FSC_test_cross(few-shot).py:83-190);
 - ValDataset == ResizeValImage (reference: util/FSC147.py:311-357);
-- TrainDataset == ResizeTrainImage (reference: util/FSC147.py:86-308).
+- TrainDataset == ResizeTrainImage (reference: util/FSC147.py:86-308);
+- PretrainDataset == the MAE pretraining transform (reference:
+  util/FSC147.py:360-365).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import time
 from typing import Dict, List, Optional, Tuple
@@ -611,3 +614,100 @@ def _blend_mosaic(cells_img, cells_den, bl: int, resize_l: int):
         img[:, 192 + i] = left_img[:, resize_l - 1 - bl + i] * w_in + img[:, 192 + i] * w_keep
         img[:, 191 - i] = right_img[:, bl - i] * w_in + img[:, 191 - i] * w_keep
     return np.clip(img, 0, 1).astype(np.float32), den.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# MAE pretrain dataset
+# ---------------------------------------------------------------------------
+
+
+class PretrainDataset:
+    """RandomResizedCrop(384, scale=(0.2, 1.0), bicubic) + horizontal flip
+    over the train split's images (reference: util/FSC147.py:360-365).
+
+    Returns {'image' [384,384,3] float32, 'name'}. With ``store`` (the
+    resident store's host catalog, ``engine/train_store.py
+    PretrainStore.catalog``) the host ships only the crop's scalars
+    (``_store_item``, ~30 bytes a sample) and the card materialises the
+    pixels."""
+
+    def __init__(self, meta: FSC147Meta, split: str = "train", seed: int = 0, store=None):
+        self.meta = meta
+        self.ids = meta.splits[split]
+        self.seed = seed
+        self.epoch = 0
+        self.store = store
+        # the random crop samples the decoded original: epochs 2+ hit this
+        self._cache = ImageCache()
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+    @staticmethod
+    def sample_crop(rng, h0: int, w0: int) -> Tuple[int, int, int, int]:
+        """torchvision's RandomResizedCrop draw (top, left, h, w): 10
+        attempts of (area scale, log-ratio), then the ratio-clamped maximal
+        centre crop (reference transform: util/FSC147.py:361-363 through
+        ``RandomResizedCrop.get_params``)."""
+        area = h0 * w0
+        min_ratio, max_ratio = 3 / 4, 4 / 3
+        for _ in range(10):
+            target = area * rng.uniform(0.2, 1.0)
+            ar = math.exp(rng.uniform(math.log(min_ratio), math.log(max_ratio)))
+            cw = int(round(math.sqrt(target * ar)))
+            ch = int(round(math.sqrt(target / ar)))
+            if 0 < cw <= w0 and 0 < ch <= h0:
+                left = int(rng.integers(0, w0 - cw + 1))
+                top = int(rng.integers(0, h0 - ch + 1))
+                return top, left, ch, cw
+        in_ratio = w0 / h0
+        if in_ratio < min_ratio:
+            cw = w0
+            ch = int(round(cw / min_ratio))
+        elif in_ratio > max_ratio:
+            ch = h0
+            cw = int(round(ch * max_ratio))
+        else:
+            cw, ch = w0, h0
+        return (h0 - ch) // 2, (w0 - cw) // 2, ch, cw
+
+    def _store_item(self, rng, idx: int) -> Dict:
+        """The crop's scalars in the store's geometry: the smaller side is
+        384 there and a portrait is stored transposed, so its crop's
+        coordinates swap."""
+        st = self.store
+        i = st.index[self.ids[idx]]
+        w = int(st.w_np[i])
+        transposed = int(st.t_np[i])
+        # the original's dims: a landscape is (384, w); a portrait (w, 384)
+        h0, w0 = (w, IMG_SIZE) if transposed else (IMG_SIZE, w)
+        top, left, ch, cw = self.sample_crop(rng, h0, w0)
+        if transposed:
+            top, left, ch, cw = left, top, cw, ch
+        flip = int(rng.random() < 0.5)
+        return {"img_idx": np.int32(i), "crop_top": np.int32(top), "crop_left": np.int32(left),
+                "crop_h": np.int32(ch), "crop_w": np.int32(cw),
+                "transposed": np.int8(transposed), "flip": np.int8(flip),
+                "name": self.ids[idx]}
+
+    def __getitem__(self, idx: int) -> Dict:
+        rng = _sample_rng(self.seed, self.epoch, idx)
+        if self.store is not None:
+            return self._store_item(rng, idx)
+        cached = self._cache.get(self.ids[idx])
+        if cached is None:
+            img = self.meta.open_image(self.ids[idx])
+            self._cache.put(self.ids[idx], (np.asarray(img, np.uint8),))
+        else:
+            img = Image.fromarray(cached[0])
+        w0, h0 = img.size
+        top, left, ch, cw = self.sample_crop(rng, h0, w0)
+        crop = img.crop((left, top, left + cw, top + ch)).resize((IMG_SIZE, IMG_SIZE),
+                                                                  Image.BICUBIC)
+        out = np.asarray(crop, np.float32) / 255.0
+        if rng.random() < 0.5:
+            out = out[:, ::-1].copy()
+        return {"image": out, "name": self.ids[idx]}

@@ -36,6 +36,8 @@ _STACK_KEYS = (
     # resident-store parameter samples (TrainDataset(store_index=...))
     "img_idx", "affine_C", "affine_d", "is_mosaic", "cell_idx",
     "cell_top", "cell_left", "cell_len", "blend_l",
+    # pretrain resident-store crop samples (PretrainDataset(store=...))
+    "crop_top", "crop_left", "crop_h", "crop_w", "transposed", "flip",
 )
 
 # -- process-worker plumbing (one unpickled dataset per worker) ----------

@@ -124,7 +124,7 @@ def accumulate(density, dens, owners, starts, wcols) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def _fp32_products():
+def fp32_products():
     """Matrix products in full fp32 (no TF32), as the JAX package's
     Precision.HIGHEST."""
     saved = torch.backends.cuda.matmul.allow_tf32
@@ -152,7 +152,7 @@ def finalize(density: torch.Tensor, rects: torch.Tensor, rect_valid: torch.Tenso
     colmask = ((cols >= x1[..., None]) & (cols <= x2[..., None])).to(density.dtype)
     rowmask = ((rows >= y1[..., None]) & (rows <= y2[..., None])).to(density.dtype)
     masks = torch.cat([colmask, density.new_ones((r, 1, wb))], 1)  # [R, K+1, wb]
-    with _fp32_products():
+    with fp32_products():
         colsums = torch.einsum("rhw,rkw->rkh", density, masks)  # [R, K+1, h]
         counts = colsums[:, k, :].sum(-1) / DENSITY_SCALE
         esum = (torch.einsum("rkh,rkh->rk", colsums[:, :k, :], rowmask)

@@ -18,9 +18,10 @@ On the CPU, or with ``graphed=False``, the same step runs eagerly. With
 ``device_aug`` the finetune step runs the photometric augmentation and the
 density synthesis itself (``ops/augment.py``), inside its graph. The
 resident-store steps (``make_store_finetune_step``, its pipelined pair,
-``make_store_eval_step`` and ``make_carpk_store_step``) materialise their
-batches from a store on the device (``engine/train_store.py``,
-``engine/carpk_store.py``) inside the same graphs.
+``make_store_eval_step``, ``make_carpk_store_step`` and
+``make_store_pretrain_step``) materialise their batches from a store on the
+device (``engine/train_store.py``, ``engine/carpk_store.py``) inside the
+same graphs.
 """
 
 from __future__ import annotations
@@ -654,6 +655,16 @@ def make_store_eval_step(model: nn.Module, val_arrays: Mapping, graphed: bool | 
                       lambda batch: (batch["idxs"], batch["valid"]), graphed)
 
 
+def _pretrain_device(state: TrainState, imgs, noise, generator, update: bool) -> Dict:
+    """The device's part of an MAE pretrain mini-step: the masking noise is
+    ``noise`` or, if None, drawn from ``generator``."""
+    state.zero_grads()
+    loss, _, _ = state.model(imgs, noise=noise, generator=None if noise is not None else generator)
+    loss.backward()
+    state.apply_gradients(update)
+    return {"loss": loss.detach()}
+
+
 def make_pretrain_step(
     state: TrainState, cfg: TrainConfig, generator: torch.Generator | None = None,
     graphed: bool | None = None,
@@ -672,15 +683,37 @@ def make_pretrain_step(
     gen = _generator(state, cfg, generator)
 
     def device_step(imgs, *noise, update: bool) -> Dict:
-        state.zero_grads()
-        loss, _, _ = state.model(imgs, noise=noise[0] if noise else None,
-                                 generator=None if noise else gen)
-        loss.backward()
-        state.apply_gradients(update)
-        return {"loss": loss.detach()}
+        return _pretrain_device(state, imgs, noise[0] if noise else None, gen, update)
 
     return _train_step(state, device_step, gen, graphed, lambda imgs, noise=None: (
         (imgs,) if noise is None else (imgs, noise), {}))
+
+
+def make_store_pretrain_step(
+    state: TrainState, cfg: TrainConfig, store_arrays: Mapping, max_w: int,
+    generator: torch.Generator | None = None, graphed: bool | None = None,
+) -> Callable[..., Dict]:
+    """Returns step(batch, noise=None) -> metrics: the resident-store MAE
+    pretrain step (the JAX ``make_store_pretrain_step``,
+    ``engine/train.py:386``). batch holds the crop's scalars
+    (``train_store.PRETRAIN_KEYS``, from ``PretrainDataset(store=...)``) on
+    the store's device, ~30 bytes a sample; the step materialises the
+    RandomResizedCrop + flip from ``store_arrays`` (``PretrainStore.arrays``,
+    read in place) with its two fp32 band products, then trains as
+    ``make_pretrain_step`` does. Noise, graphs and ``graphed`` as there."""
+    from countr_tpu_torch.engine.train_store import PRETRAIN_KEYS, materialize_pretrain_batch
+
+    gen = _generator(state, cfg, generator)
+    n = len(PRETRAIN_KEYS)
+
+    def device_step(*ins, update: bool) -> Dict:
+        with torch.no_grad():
+            imgs = materialize_pretrain_batch(store_arrays, dict(zip(PRETRAIN_KEYS, ins[:n])),
+                                              max_w)
+        return _pretrain_device(state, imgs, ins[n] if len(ins) > n else None, gen, update)
+
+    return _train_step(state, device_step, gen, graphed, lambda batch, noise=None: (
+        tuple(batch[k] for k in PRETRAIN_KEYS) + (() if noise is None else (noise,)), {}))
 
 
 ENCODER_PREFIXES = ("patch_embed.", "norm.")

@@ -39,6 +39,11 @@ The photometric chain and the density synthesis are ``ops/augment.py``'s
 (mosaic samples skip the photometric chain, like the reference's clean
 cells). Per-step upload: ~100 bytes of geometry and the dot coordinates
 per sample.
+
+The MAE pretrain store (``PretrainStore``, the JAX package's layout: a
+column-major [w, 384] uint8 pool) makes the RandomResizedCrop(384,
+bicubic) + flip of pretraining from ~30 bytes of crop scalars a sample
+with two dense band products (``materialize_pretrain_batch``).
 """
 
 from __future__ import annotations
@@ -405,6 +410,160 @@ def build_val_store(val_ds, device, log=print) -> ValStore:
     log(f"val store: {n} samples, {(images.nbytes + boxes.nbytes) / 1e6:.0f} MB -> {device}")
     dev = upload({"images": images, "boxes": boxes, "gt": gt}, device, "the validation store")
     return ValStore(images=dev["images"], boxes=dev["boxes"], gt_cnt=dev["gt"], n=n)
+
+
+# ---------------------------------------------------------------------------
+# MAE pretrain store: RandomResizedCrop(384, bicubic) + flip on the device
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PretrainCatalog:
+    """The host's part of a ``PretrainStore``: what ``PretrainDataset`` draws
+    a crop from (small and picklable, for process workers)."""
+
+    index: Dict[str, int]
+    w_np: np.ndarray  # [N] logical width (the stored row count)
+    t_np: np.ndarray  # [N] int8: 1 = stored transposed (a portrait original)
+
+
+@dataclasses.dataclass
+class PretrainStore:
+    """The resident store of MAE pretraining (the JAX ``PretrainStore``).
+    Every image is resized to exactly 384 logical rows (the smaller side
+    384; a portrait transposed first) and stored column-major as [w, 384]
+    pixels: with the fixed 384 stride one sample's slab is one static-size
+    run of ``max_w * 384`` pixels from its base, gathered inside the graph
+    without reading the base back to the host. The pool is tail-padded by
+    ``max_w * 384`` pixels, so the last image's slab stays inside it
+    whatever its width. The reference crops the ~384-side originals
+    (util/FSC147.py:360-365); normalising the smaller side to 384 first
+    leaves a scale-invariant crop's distribution as it is."""
+
+    ids: List[str]
+    pixels: torch.Tensor  # [P, 3] uint8: the images as [w, 384], then the pad
+    base: torch.Tensor  # [N] int64 offset of an image's first pixel
+    width: torch.Tensor  # [N] int64 logical width
+    max_w: int
+    catalog: PretrainCatalog
+
+    @property
+    def arrays(self) -> Dict[str, torch.Tensor]:
+        return {"pixels": self.pixels, "base": self.base, "width": self.width}
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.arrays.values())
+
+
+def build_pretrain_store(meta, ids: List[str], device, log=print) -> PretrainStore:
+    """Decode and resize every image once (PIL bilinear, the smaller side to
+    384), lay it out column-major and upload the pool to ``device``."""
+    from countr_tpu_torch.data import transforms as T
+
+    n = len(ids)
+    bases = np.zeros(n, np.int64)
+    widths = np.zeros(n, np.int64)
+    tflags = np.zeros(n, np.int8)
+    chunks = []
+    off = 0
+    for i, im_id in enumerate(ids):
+        img = meta.open_image(im_id)
+        w0, h0 = img.size
+        if h0 <= w0:  # landscape: 384 logical rows
+            u8 = T.pil_resize_u8(img, IMG_SIZE, max(IMG_SIZE, round(w0 * IMG_SIZE / h0)))
+        else:  # portrait: width 384, its transpose is the logical layout
+            u8 = T.pil_resize_u8(img, max(IMG_SIZE, round(h0 * IMG_SIZE / w0)), IMG_SIZE)
+            u8 = u8.transpose(1, 0, 2)
+            tflags[i] = 1
+        bases[i], widths[i] = off, u8.shape[1]
+        off += IMG_SIZE * u8.shape[1]
+        chunks.append(np.ascontiguousarray(u8.transpose(1, 0, 2)).reshape(-1, 3))
+        if (i + 1) % 500 == 0:
+            log(f"pretrain store: decoded {i + 1}/{n} images")
+    # the JAX package's limit (its base is int32), kept so that the two
+    # stores hold the same splits
+    assert off < 2**31, "pixel pool exceeds int32 indexing"
+    max_w = int(widths.max())
+    chunks.append(np.zeros((IMG_SIZE * max_w, 3), np.uint8))
+    pool = np.concatenate(chunks, axis=0)
+    log(f"pretrain store: {n} images, {pool.nbytes / 1e6:.0f} MB -> {device}")
+    dev = upload({"pixels": pool, "base": bases, "width": widths}, device, "the pretrain store")
+    return PretrainStore(ids=list(ids), pixels=dev["pixels"], base=dev["base"],
+                         width=dev["width"], max_w=max_w,
+                         catalog=PretrainCatalog({im_id: i for i, im_id in enumerate(ids)},
+                                                 widths.copy(), tflags))
+
+
+def _bicubic_kernel(x: torch.Tensor) -> torch.Tensor:
+    """PIL's and torchvision's bicubic filter (a = -0.5)."""
+    a = -0.5
+    ax = x.abs()
+    w1 = (a + 2.0) * ax ** 3 - (a + 3.0) * ax ** 2 + 1.0
+    w2 = a * ax ** 3 - 5.0 * a * ax ** 2 + 8.0 * a * ax - 4.0 * a
+    return torch.where(ax <= 1.0, w1, torch.where(ax < 2.0, w2, torch.zeros_like(ax)))
+
+
+def _bicubic_band(n_src: int, start: torch.Tensor, length: torch.Tensor,
+                  out: int = IMG_SIZE) -> torch.Tensor:
+    """PIL's antialiased bicubic resize of the crops [start, start + length)
+    [B] of an axis of ``n_src`` pixels to ``out``, as dense weights
+    [B, n_src, out]: the filter's support scales with the downscale factor
+    and each output's weights are renormalised over its in-crop taps
+    (reference resize: util/FSC147.py:362)."""
+    dev = start.device
+    start = start.float()[:, None, None]
+    stop = start + length.float()[:, None, None]
+    # length / out as XLA compiles it: a product with the float32 reciprocal
+    scale = length.float()[:, None, None] * (1.0 / out)
+    fs = torch.clamp_min(scale, 1.0)
+    j = torch.arange(out, dtype=torch.float32, device=dev)[None, None, :]
+    i = torch.arange(n_src, dtype=torch.float32, device=dev)[None, :, None]
+    # rounded once, as the fused multiply-add XLA emits for the JAX
+    # package's start + (j + 0.5) * scale: a centre one ulp away (6e-5 px
+    # past 512) moves a tap weight by as much
+    center = (start.double() + (j + 0.5).double() * scale.double()).float()
+    w = _bicubic_kernel((i + 0.5 - center) / fs) * ((i >= start) & (i < stop)).float()
+    return w / torch.clamp_min(w.sum(dim=1, keepdim=True), 1e-8)
+
+
+PRETRAIN_KEYS = ("img_idx", "crop_top", "crop_left", "crop_h", "crop_w", "transposed", "flip")
+
+
+def materialize_pretrain_batch(store_arrays: Dict, batch: Dict, max_w: int) -> torch.Tensor:
+    """RandomResizedCrop(384, bicubic) + horizontal flip on the store's
+    device (the JAX ``materialize_pretrain_batch``).
+
+    batch: img_idx [B]; crop_top / crop_left / crop_h / crop_w [B] (the crop
+    in stored coordinates); transposed [B]; flip [B]. Returns [B, 384, 384,
+    3] float32 in [0, 1].
+
+    Each sample's slab is ``max_w * 384`` pixels from its base, gathered at
+    base + arange: a static length, so nothing is read back to the host
+    (where JAX takes a ``dynamic_slice``). Stored rows past the image's
+    width belong to the next image or the pad, and the x band never weights
+    them (left + w <= width). The two band products run in full fp32 (no
+    TF32: the JAX package's Precision.HIGHEST) whatever the process's flags
+    are, also while a graph is captured. The transpose and the flip are
+    selected per sample on the device, both branches computed."""
+    from countr_tpu_torch.engine.device_pipeline import fp32_products
+
+    px = store_arrays["pixels"]
+    n = max_w * IMG_SIZE
+    idx = batch["img_idx"].long()
+    flat = px[store_arrays["base"][idx][:, None] + torch.arange(n, device=px.device)]
+    img = flat.reshape(-1, max_w, IMG_SIZE, 3).float() * INV_255  # [B, x_stored, y_stored, 3]
+    wy = _bicubic_band(IMG_SIZE, batch["crop_top"], batch["crop_h"])  # [B, 384 src, 384 out]
+    wx = _bicubic_band(max_w, batch["crop_left"], batch["crop_w"])  # [B, max_w, 384 out]
+    with fp32_products():
+        out = torch.einsum("bxyc,bxo->boyc", img, wx)
+        out = torch.einsum("boyc,byj->bojc", out, wy)
+    # out is [x_out, y_out]: the logical layout's transpose, which is the
+    # final orientation of a transposed (portrait) sample
+    b = out.shape[0]
+    out = torch.where(batch["transposed"].reshape(b, 1, 1, 1) > 0, out, out.transpose(1, 2))
+    out = torch.where(batch["flip"].reshape(b, 1, 1, 1) > 0, out.flip(2), out)
+    return torch.clamp(out, 0.0, 1.0)
 
 
 # ---------------------------------------------------------------------------

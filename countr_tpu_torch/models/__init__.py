@@ -36,13 +36,15 @@ def build_countr(
 
 def build_mae(
     name: str = "mae_vit_base_patch16", *, dtype: str = "bf16",
-    fused_attn_block: bool = False, device=None, seed: int = 0, **overrides,
+    fused_attn_block: bool = False, device=None, seed: int = 0, masked_loss: bool = False,
+    **overrides,
 ) -> MaskedAutoencoderViT:
     """Build an MAE preset in the ``dtype`` mode of the pretrain CLI
     (``config.pretrain_overrides``: in bf16 the kernels B1 and B3/B4, tanh
     GELU, B2 off), or with ``fused_attn_block=True`` the config's own
     default (B2 on, its backward through B3/B4); further config
-    ``overrides`` on top. Initialised at random from
+    ``overrides`` on top; ``masked_loss`` as in ``MaskedAutoencoderViT``.
+    Initialised at random from
     ``torch.Generator().manual_seed(seed)``, on ``device`` (None = the
     CUDA card; raises when there is none), in train mode."""
     dev = resolve_device(device)
@@ -50,7 +52,7 @@ def build_mae(
         MAE_PRESETS[name], **{**pretrain_overrides(dtype, fused_attn_block), **overrides})
     if cfg.dtype == torch.float32:
         disable_tf32()
-    model = MaskedAutoencoderViT(cfg)
+    model = MaskedAutoencoderViT(cfg, masked_loss=masked_loss)
     init_mae_(model, torch.Generator().manual_seed(seed))
     return model.to(dev).train()
 

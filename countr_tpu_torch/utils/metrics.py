@@ -1,7 +1,8 @@
-"""Counting metrics and structured logging of the inference CLIs
-(counterpart of ``CountingMetrics``, ``JsonlLogger`` and ``measure_time``
-in ``countr_tpu/utils/metrics.py``; reference: util/misc.py:545-562,
-FSC_pretrain.py:334-338, FSC_test_cross(few-shot).py:361-365, :429-434).
+"""Counting metrics and structured logging of the CLIs (counterpart of
+``CountingMetrics``, ``JsonlLogger``, ``TBWriter`` and ``measure_time`` in
+``countr_tpu/utils/metrics.py``; reference: util/misc.py:545-562,
+FSC_pretrain.py:174-178, :334-338, FSC_test_cross(few-shot).py:361-365,
+:429-434).
 """
 
 from __future__ import annotations
@@ -27,6 +28,36 @@ class JsonlLogger:
             return
         with open(self.path, "a", encoding="utf-8") as f:
             f.write(json.dumps(record) + "\n")
+
+
+class TBWriter:
+    """Optional TensorBoard sink (reference: FSC_pretrain.py:174-178): a
+    no-op where ``log_dir`` is None or no SummaryWriter imports."""
+
+    def __init__(self, log_dir: Optional[str]):
+        self._w = None
+        if log_dir:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                return
+            self._w = SummaryWriter(log_dir=log_dir)
+
+    @property
+    def enabled(self) -> bool:
+        return self._w is not None
+
+    def scalar(self, tag: str, value: float, step: int):
+        if self._w is not None:
+            self._w.add_scalar(tag, value, step)
+
+    def image(self, tag: str, img_hwc, step: int):
+        if self._w is not None:
+            self._w.add_image(tag, img_hwc, step, dataformats="HWC")
+
+    def flush(self):
+        if self._w is not None:
+            self._w.flush()
 
 
 class CountingMetrics:

@@ -29,7 +29,7 @@ def test_imports_no_jax():
     mods = _modules()
     for m in ("engine.inference", "native", "data.imcache", "data.loader", "data.fsc147",
               "ops.augment", "cli.finetune", "engine.train_store", "engine.carpk_store",
-              "cli.finetune_carpk"):
+              "cli.finetune_carpk", "cli.pretrain"):
         assert f"countr_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -57,7 +57,7 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         CountingEngine(model)
     from countr_tpu_torch.cli import (
-        common, demo, finetune, finetune_carpk, serve, test, test_carpk,
+        common, demo, finetune, finetune_carpk, pretrain, serve, test, test_carpk,
     )
 
     for args in (test.get_args([]), serve.get_args([]), test_carpk.get_args([]),
@@ -68,6 +68,10 @@ def test_entry_points_default_to_cuda():
             common.build_counting_model(args)
     with pytest.raises(RuntimeError, match="CUDA"):
         common.build_counting_model(finetune.get_args([]), training=True)
+    args = pretrain.get_args([])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pretrain.build_mae_model(args)
 
 
 def test_engine_rejects_bad_input():
