@@ -56,6 +56,21 @@ Phases, one line each on stdout:
   8. bench: the JSON line of countr_tpu_torch.bench (few-shot) on the
      same engine: images/s of count_batch (min / median / max of 8
      passes), graphed, eager and pipeline windows/s;
+  8b. parallel: data parallelism on the one card. torchrun's environment
+     set here for a world of 1, parallel.dist.init_distributed on NCCL;
+     the finetune step (batch 8) and the pretrain step (batch 16) with the
+     group (their gradient and metric all-reduces captured in the graphs:
+     two issued in each capture, none by a replay) against the same steps
+     without one: 4 steps each from the same start to the bit; B1 44, B3
+     18, B4 6 and B1 42, B3 20, B4 20 per replay with the counters at 0,
+     no eager launch, no capture after the first step; step ms with and
+     without the group, the all-reduce's bytes and device ms in the replay
+     (profiler); the group destroyed and the environment restored; then
+     count_batch through a pipeline over two replicas on cuda:0 against the
+     one-device pipeline on the count_batch phase's 19 images: counts
+     within COUNT_BATCH_REL_TOL (and whether bitwise), B1 26 and B2 18 per
+     replica forward, no eager launch, images/s of both; --n_devices 2
+     refused, naming the visible count;
   9. cli_test: countr_tpu_torch.cli.test on a synthetic FSC147 tree of 24
      images (scripts/make_synthetic_fsc.py, in a temporary out_smoke_*
      directory): as a subprocess in the bf16 fast mode (exit code, stats,
@@ -194,6 +209,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import json
+import os
 import sys
 import time
 
@@ -859,6 +875,8 @@ def profile_run(torch, run, steps: int):
         wall_ms=wall_ms, device_busy_ms=busy, idle_share=max(0.0, 1 - busy / wall_ms),
         port_kernels=[{"kernel": k[:90], "ms": ms, "calls": n} for k, ms, n in kernels
                       if any(t in k for t in ours)],
+        collectives=[{"kernel": k[:90], "ms": ms, "calls": n} for k, ms, n in kernels
+                     if "nccl" in k.lower()],
         top=[{"kernel": k[:90], "ms": ms, "calls": n} for k, ms, n in kernels[:14]])
 
 
@@ -1604,9 +1622,10 @@ def graph_launches(runner, per_step, steps: int, what: str) -> dict:
     return {k: v / steps for k, v in runner.launched.items()}
 
 
-def finetune_setup(torch, dev, seed: int = 0, accum: int = 1, graphed=None, **over):
+def finetune_setup(torch, dev, seed: int = 0, accum: int = 1, graphed=None, mesh=None, **over):
     """(state, step, mask generator, cfg) of the bf16 training build at
-    full width, random weights from ``seed``."""
+    full width, random weights from ``seed``; a data-parallel rank's with
+    ``mesh``."""
     from countr_tpu_torch.config import TrainConfig, fast_mode_overrides
     from countr_tpu_torch.engine import train as engine
     from countr_tpu_torch.models import build_countr
@@ -1615,7 +1634,8 @@ def finetune_setup(torch, dev, seed: int = 0, accum: int = 1, graphed=None, **ov
                          **{**fast_mode_overrides("bf16", training=True), **over})
     cfg = TrainConfig(batch_size=TRAIN_BATCH, lr=TRAIN_LR, min_lr=TRAIN_LR, warmup_epochs=0,
                       accum_iter=accum)
-    state = engine.init_train_state(model, cfg, steps_per_epoch=100, world_batch=TRAIN_BATCH)
+    state = engine.init_train_state(model, cfg, steps_per_epoch=100, world_batch=TRAIN_BATCH,
+                                    mesh=mesh)
     if {state.schedule(i) for i in range(8)} != {TRAIN_LR}:
         raise AssertionError("the train phase's learning rate is not constant")
     gen = torch.Generator(device=dev)
@@ -1860,7 +1880,7 @@ PRETRAIN_LAUNCHES = {
 }
 
 
-def pretrain_setup(torch, dev, fused: bool, graphed=None):
+def pretrain_setup(torch, dev, fused: bool, graphed=None, mesh=None):
     from countr_tpu_torch.config import TrainConfig
     from countr_tpu_torch.engine import train as engine
     from countr_tpu_torch.models import build_mae
@@ -1868,7 +1888,8 @@ def pretrain_setup(torch, dev, fused: bool, graphed=None):
     model = build_mae("mae_vit_base_patch16", seed=0, fused_attn_block=fused, device=dev)
     cfg = TrainConfig(batch_size=PRETRAIN_BATCH, lr=PRETRAIN_LR, min_lr=PRETRAIN_LR,
                       warmup_epochs=0)
-    state = engine.init_train_state(model, cfg, steps_per_epoch=100, world_batch=PRETRAIN_BATCH)
+    state = engine.init_train_state(model, cfg, steps_per_epoch=100, world_batch=PRETRAIN_BATCH,
+                                    mesh=mesh)
     if {state.schedule(i) for i in range(8)} != {PRETRAIN_LR}:
         raise AssertionError("the pretrain phase's learning rate is not constant")
     gen = torch.Generator(device=dev)
@@ -2769,6 +2790,212 @@ def carpk_cli_phase(torch):
     return total
 
 
+PARALLEL_ENV = dict(MASTER_ADDR="localhost", RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+
+
+def same_state(torch, what: str, a, b, losses_a, losses_b) -> dict:
+    """Two training states after the same steps: every loss, parameter and
+    Adam tensor the same bits. Raises otherwise."""
+    params = all(torch.equal(p, q) for p, q in zip(a.model.parameters(), b.model.parameters()))
+    moments = all(torch.equal(x, y) for p, q in zip(a.params, b.params)
+                  for x, y in zip(a.moments(p), b.moments(q)))
+    out = dict(losses_equal=losses_a == losses_b, params_equal=params, moments_equal=moments)
+    if not all(out.values()):
+        raise AssertionError(f"{what}: {out}; losses {losses_a} against {losses_b}")
+    return out
+
+
+@contextlib.contextmanager
+def counted_all_reduces(torch):
+    """Counts the torch.distributed.all_reduce calls made while a CUDA
+    graph is being captured and those made outside a capture."""
+    import torch.distributed as tdist
+
+    real, n = tdist.all_reduce, {"in_capture": 0, "outside_capture": 0}
+
+    def counting(*a, **kw):
+        n["in_capture" if torch.cuda.is_current_stream_capturing() else "outside_capture"] += 1
+        return real(*a, **kw)
+
+    tdist.all_reduce = counting
+    try:
+        yield n
+    finally:
+        tdist.all_reduce = real
+
+
+def parallel_step(torch, what: str, setup, args, per_step: dict, seed: int) -> dict:
+    """A training step of one rank of a world of 1 (its gradient and
+    metric all-reduces captured in its graphs) against the same step
+    without a group: 4 steps each from the same start, the same bits;
+    two all-reduces issued in each graph's capture (the flat gradient
+    buffer and the metrics), none by the replays; launches per replay and
+    no eager launch; no capture after the first step; step ms of both
+    (CUDA events) and the all-reduce's device ms inside the replay
+    (profiler)."""
+    from countr_tpu_torch.bench import events_ms
+
+    (state_d, step_d, gen_d), (state_p, step_p, gen_p) = setup(True), setup(False)
+    with counted_all_reduces(torch) as in_captures:
+        for a in args:
+            step_d.capture(*a)
+    for a in args:
+        step_p.capture(*a)
+    graphs = len(step_d.runner)
+    if in_captures["in_capture"] != 2 * graphs:
+        raise AssertionError(f"{what}: all-reduces {in_captures} in {graphs} captures")
+    reset_counts()
+    step_d.runner.zero_counts()
+    with counted_all_reduces(torch) as in_replays:
+        run_d = run_steps(torch, step_d, args, lambda: gen_d.manual_seed(seed))
+    if any(in_replays.values()):
+        raise AssertionError(f"{what}: the replays issued all-reduces {in_replays}")
+    per_replay = graph_launches(step_d.runner, per_step, len(args), what)
+    run_p = run_steps(torch, step_p, args, lambda: gen_p.manual_seed(seed))
+    same = same_state(torch, what, state_d, state_p, run_d["losses"], run_p["losses"])
+    if len(step_d.runner) != graphs:
+        raise AssertionError(f"{what}: {len(step_d.runner) - graphs} graphs captured after "
+                             "the first step")
+    ms_d = events_ms(lambda: step_d(*args[0]), iters=10)
+    ms_p = events_ms(lambda: step_p(*args[0]), iters=10)
+    prof = profile_run(torch, lambda: step_d(*args[0]), 3)
+    flat_bytes = sum(f.numel() * f.element_size() for f in state_d.flat)
+    out = dict(steps=len(args), losses=run_d["losses"], launches_per_replay=per_replay,
+               graphs=graphs, captured_after_first_step=0, bitwise_equal_to_no_group=same,
+               all_reduces_in_captures=in_captures, all_reduces_in_replays=in_replays,
+               ms_per_step=ms_d, no_group_ms_per_step=ms_p,
+               allreduce_bytes_per_step=flat_bytes, flat_buffers=len(state_d.flat),
+               allreduce_device_ms_per_step=sum(r["ms"] for r in prof["collectives"]),
+               collectives=prof["collectives"], idle_share=prof["idle_share"],
+               device_busy_ms=prof["device_busy_ms"])
+    del state_d, step_d, state_p, step_p
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_counting(torch, model) -> dict:
+    """count_batch through a pipeline over two replicas on cuda:0 against
+    the one-device pipeline on COUNT_BATCH_CASES' images: counts within
+    COUNT_BATCH_REL_TOL (and whether they are the same bits); B1 26 and B2
+    18 per replica forward, no eager launch; images/s of both."""
+    from countr_tpu_torch.engine.inference import CountingEngine
+
+    rng = np.random.default_rng(14)
+    cases = [synthetic_image(rng, w, sizes) for w, sizes in COUNT_BATCH_CASES]
+    images, boxes, rects = (list(x) for x in zip(*cases))
+    one = CountingEngine(model, batch_windows=WINDOWS)
+    two = CountingEngine(model, batch_windows=WINDOWS, devices=["cuda:0", "cuda:0"])
+    graphs = {"one": one.capture_forwards((3,)), "two": two.capture_forwards((3,))}
+
+    def timed(engine):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = engine.count_batch(images, boxes, rects, 3, return_density=False)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    runners = [f.runner for f in two._pipeline.forwards]
+    reset_counts()
+    for r in runners:
+        r.zero_counts()
+    res_two, ms_two = timed(two)
+    eager = launch_counts()
+    per_replica = []
+    for i, r in enumerate(runners):
+        want = {"B1": 26 * r.replays, "B2": 18 * r.replays, "B3": 0, "B4": 0, "B5": 0, "B6": 0}
+        if any(eager.values()) or r.launched != want or r.replays == 0:
+            raise AssertionError(f"parallel count_batch, replica {i}: {r.launched} over "
+                                 f"{r.replays} replays, eager {eager}")
+        per_replica.append(dict(replays=r.replays,
+                                per_replay={k: v / r.replays for k, v in r.launched.items()}))
+    if runners[0].replays != runners[1].replays:
+        raise AssertionError(f"parallel count_batch: replays {[r.replays for r in runners]}")
+    res_one, ms_one = timed(one)
+    worst, bitwise = 0.0, True
+    for i, (a, b) in enumerate(zip(res_two, res_one)):
+        if a.grid_mode != b.grid_mode or a.n_windows != b.n_windows:
+            raise AssertionError(f"parallel count_batch image {i}: grid or windows differ")
+        for field in ("count", "raw_count", "e_cnt"):
+            x, r = getattr(a, field), getattr(b, field)
+            bitwise &= x == r
+            rel = abs(x - r) / max(abs(r), 1e-6)
+            worst = max(worst, rel)
+            if not np.isfinite(x) or not rel <= COUNT_BATCH_REL_TOL:
+                raise AssertionError(f"parallel count_batch image {i}: {field} {x} against "
+                                     f"one device's {r}")
+    ms_two = min(ms_two, *(timed(two)[1] for _ in range(3)))
+    ms_one = min(ms_one, *(timed(one)[1] for _ in range(3)))
+    out = dict(devices=["cuda:0", "cuda:0"], images=len(images), graphs=graphs,
+               per_replica=per_replica, eager_launches=eager, max_rel_diff_vs_one=worst,
+               rel_limit=COUNT_BATCH_REL_TOL, counts_bitwise_equal=bool(bitwise),
+               ms=ms_two, one_device_ms=ms_one, images_per_s=len(images) / ms_two * 1e3,
+               one_device_images_per_s=len(images) / ms_one * 1e3)
+    del one, two
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_phase(torch, dev, model) -> dict:
+    """Data parallelism on the one card: a process group of world 1 over
+    NCCL (torchrun's environment set here), the finetune step (batch 8)
+    and the pretrain step (batch 16) with the group against the same steps
+    without one (``parallel_step``); count_batch over two replicas on
+    cuda:0 (``parallel_counting``); ``--n_devices 2`` refused, naming the
+    visible count. The group is destroyed and the environment restored
+    after. Returns the launches of the steps' runs by path."""
+    import torch.distributed as tdist
+
+    from countr_tpu_torch.cli import finetune
+    from countr_tpu_torch.parallel import dist
+
+    saved = {k: os.environ.get(k) for k in (*PARALLEL_ENV, "MASTER_PORT")}
+    os.environ.update(PARALLEL_ENV, MASTER_PORT=str(dist.free_port()))
+    try:
+        t0 = time.perf_counter()
+        mesh = dist.init_distributed("cuda")
+        init_s = time.perf_counter() - t0
+        backend = tdist.get_backend(mesh.group)
+        if backend != "nccl" or mesh.world != 1:
+            raise AssertionError(f"parallel: backend {backend}, world {mesh.world}")
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in train_batch(np.random.default_rng(6), TRAIN_BATCH).items()}
+        ft = parallel_step(
+            torch, "parallel finetune",
+            lambda grouped: finetune_setup(torch, dev, mesh=mesh if grouped else None)[:3],
+            [(batch, s) for s in (3, 2, 1, 0)], FT_TRAIN_LAUNCHES, seed=2)
+        imgs = torch.from_numpy(train_batch(np.random.default_rng(10),
+                                            PRETRAIN_BATCH)["image"]).to(dev)
+        pt = parallel_step(
+            torch, "parallel pretrain",
+            lambda grouped: pretrain_setup(torch, dev, False, mesh=mesh if grouped else None),
+            [(imgs,)] * 4, PRETRAIN_LAUNCHES[False], seed=11)
+        dist.destroy()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    count = parallel_counting(torch, model)
+    try:
+        finetune.main(finetune.get_args(["--n_devices", "2", "--data_path", "none"]))
+        raise AssertionError("parallel: --n_devices 2 ran on a one-card machine")
+    except ValueError as e:
+        if f"{torch.cuda.device_count()} CUDA device(s) visible" not in str(e):
+            raise
+        refused = str(e)
+    say("parallel", backend=backend, world=mesh.world, init_s=init_s, finetune=ft,
+        pretrain=pt, count_batch=count, n_devices_2_refused=refused,
+        destroyed=not tdist.is_initialized())
+    def total(per_replay: dict, replays: int) -> dict:
+        return {k: v * replays for k, v in per_replay.items()}
+
+    replicas = [total(r["per_replay"], r["replays"]) for r in count["per_replica"]]
+    return {"parallel_finetune": total(ft["launches_per_replay"], ft["steps"]),
+            "parallel_pretrain": total(pt["launches_per_replay"], pt["steps"]),
+            "parallel_count_batch": {k: sum(r[k] for r in replicas) for k in replicas[0]}}
+
+
 def main() -> int:
     import torch
 
@@ -2812,6 +3039,7 @@ def main() -> int:
     graph_phase(torch, engine)
     by_path["count_batch"] = count_batch_phase(torch, engine)
     bench_phase(engine)
+    by_path.update(parallel_phase(torch, dev, model))
     # the mixed modes turn TF32 off for the process (an fp32 head); the
     # later phases keep the flags they had
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)

@@ -7,6 +7,11 @@ the build raises (``countr_tpu_torch.resolve_device``), and ``cpu`` runs
 on the CPU on request. The JAX package's flags for JAX machinery
 (``--debug_nans``, the compilation cache) and for W&B are not carried
 (ROADMAP item 9).
+
+``--n_devices``: the training CLIs run one rank per device
+(``launch_ranks``, ``init_ranks``; ``parallel/dist.py``), the counting
+CLIs shard each window chunk over the devices in one process
+(``build_engine``).
 """
 
 from __future__ import annotations
@@ -94,15 +99,86 @@ def build_counting_model(args, training: bool = False):
     return model
 
 
+def launch_ranks(entry, args):
+    """A training CLI's front: with ``--n_devices`` N > 1 outside torchrun,
+    start N ranks of ``entry(args)`` here (``parallel.dist.launch``: one
+    card each, or gloo processes with ``--device cpu``) and return rank 0's
+    result; None when this process runs the training itself."""
+    import os
+
+    from countr_tpu_torch.parallel import dist
+
+    n = args.n_devices
+    if n <= 1 or "WORLD_SIZE" in os.environ:
+        return None
+    check_batch(args, n)
+    return dist.launch(entry, args, n)
+
+
+def check_batch(args, world: int) -> None:
+    """The global ``--batch_size`` splits evenly over the ranks
+    (``countr_tpu/cli/finetune.py:176-182``)."""
+    if args.batch_size % world:
+        raise ValueError(f"--batch_size {args.batch_size} must be divisible by the "
+                         f"{world}-device mesh (--n_devices)")
+
+
+def init_ranks(args):
+    """This process's data-parallel ``parallel.mesh.Mesh`` when it is a rank
+    (under torchrun, or started by ``launch_ranks``), with ``args.device``
+    set to the rank's device; None in a single-process run, which
+    ``--n_devices`` above 1 refuses. A rank's ``--n_devices`` must be 0 or
+    the world size, and ``--batch_size`` a multiple of it."""
+    from countr_tpu_torch.parallel import dist
+
+    mesh = dist.init_distributed(args.device)
+    if mesh is None:
+        if args.n_devices > 1:
+            check_batch(args, args.n_devices)
+            raise ValueError(f"--n_devices {args.n_devices}: start the ranks through the "
+                             "CLI's main() or under torchrun")
+        return None
+    if args.n_devices not in (0, mesh.world):
+        raise ValueError(f"--n_devices {args.n_devices} in a run of {mesh.world} ranks")
+    check_batch(args, mesh.world)
+    args.device = str(mesh.device)
+    return mesh
+
+
+def resume(args, outdir: Optional[str], state, mesh) -> int:
+    """``--do_resume``: restore ``outdir/ckpt_last``'s latest checkpoint
+    into ``state`` and return the epoch after it (0 without one). The
+    ranks of a data-parallel run meet at a barrier first, then each reads
+    the same file (rank 0 wrote it)."""
+    from countr_tpu_torch.engine import checkpoint as ckpt
+    from countr_tpu_torch.parallel.dist import rank0_print
+
+    if not (args.do_resume and outdir):
+        return 0
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.barrier(group=mesh.host_group)
+    last_dir = os.path.join(outdir, "ckpt_last")
+    if ckpt.latest_step(last_dir) is None:
+        return 0
+    epoch = ckpt.restore_checkpoint(last_dir, state) + 1
+    rank0_print(f"resumed epoch {epoch} from {last_dir}")
+    return epoch
+
+
 def build_engine(args, normalization: bool):
-    """The CLIs' CountingEngine on ``args.device``. One device only: the
-    multi-device pipeline is not ported yet (ROADMAP item 8)."""
+    """The CLIs' CountingEngine on ``args.device``; with ``--n_devices`` N
+    > 1 each window chunk is split over N devices (``parallel.mesh
+    .get_mesh``; ``--batch_windows`` a multiple of N)."""
     from countr_tpu_torch.engine.inference import CountingEngine
 
-    if getattr(args, "n_devices", 0) > 1:
-        raise ValueError(
-            f"--n_devices {args.n_devices}: the port counts on one device; sharding "
-            "window batches over several is not ported yet (ROADMAP item 8)")
+    n = getattr(args, "n_devices", 0)
+    devices = None
+    if n > 1:
+        from countr_tpu_torch.parallel.mesh import get_mesh
+
+        devices = get_mesh(n, args.device).devices
     return CountingEngine(
         build_counting_model(args),
         batch_windows=args.batch_windows,
@@ -110,6 +186,7 @@ def build_engine(args, normalization: bool):
         max_s_cnt=getattr(args, "max_s_cnt", 1),
         narrow_policy=getattr(args, "narrow_policy", "pad"),
         device=args.device,
+        devices=devices,
     )
 
 

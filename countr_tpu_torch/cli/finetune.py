@@ -16,8 +16,13 @@ loader's batches are uploaded ahead of the step from pinned memory
 materialisation is replayed from a CUDA graph, all captured before the
 first batch.
 
-Not ported yet, and refused with the ROADMAP item: ``--n_devices`` above
-1 (item 8). TensorBoard, the validation panels and W&B are item 9.
+Data parallel with ``--n_devices N`` (or under ``torchrun
+--nproc_per_node N``): one rank per card (gloo processes with ``--device
+cpu``); ``--batch_size`` stays the global batch, each rank loads its slice,
+and the step averages the gradients and metrics across the ranks inside
+its graph (``engine/train.py TrainState``). Rank 0 alone prints, logs and
+writes checkpoints. TensorBoard, the validation panels and W&B are ROADMAP
+item 9.
 
 Usage:
   python -m countr_tpu_torch.cli.finetune --data_path ./data/FSC147 \\
@@ -40,6 +45,7 @@ import torch
 
 from countr_tpu_torch.cli import common
 from countr_tpu_torch.config import TrainConfig
+from countr_tpu_torch.parallel.dist import rank0_print
 from countr_tpu_torch.utils.metrics import JsonlLogger
 
 
@@ -81,19 +87,26 @@ def get_args(argv=None):
                    help="MAE pretrain checkpoint to initialise the encoder from: a reference "
                         ".pth, or a directory of the port's checkpoints")
     p.add_argument("--limit_steps", default=0, type=int, help="cap steps/epoch (smoke tests)")
-    p.add_argument("--n_devices", default=0, type=int,
-                   help="devices to train on; the port trains on one (0 or 1), more is "
-                        "not ported yet (ROADMAP item 8)")
+    p.add_argument("--n_devices", default=0, type=int, help=N_DEVICES_HELP)
     p.add_argument("--log_every", default=50, type=int,
                    help="steps between printed train loss / lr lines (0 = per epoch only; "
                         "reference: FSC_finetune_cross.py:320-326)")
     return p.parse_args(argv)
 
 
-def sample_shot_num(rng: random.Random, m_flags: np.ndarray) -> int:
+N_DEVICES_HELP = ("data-parallel ranks, one per card (gloo processes with --device cpu), "
+                  "started here unless run under torchrun (0 or 1: one process); "
+                  "--batch_size is the global batch and must be a multiple of N")
+
+
+def sample_shot_num(rng: random.Random, m_flags: np.ndarray, mesh=None) -> int:
     """0-3 shots, but a Type-2 mosaic in the batch bans 0-shot
-    (reference: FSC_finetune_cross.py:277-284)."""
-    return rng.randint(1 if np.any(m_flags) else 0, 3)
+    (reference: FSC_finetune_cross.py:277-284). The mosaic test spans the
+    global batch (``parallel.mesh.global_any``), so that every rank draws
+    the same shot from its identically seeded ``rng``."""
+    from countr_tpu_torch.parallel.mesh import global_any
+
+    return rng.randint(1 if global_any(m_flags, mesh) else 0, 3)
 
 
 def epoch_seed(seed: int, epoch: int) -> int:
@@ -103,10 +116,32 @@ def epoch_seed(seed: int, epoch: int) -> int:
     return int(np.random.SeedSequence([seed, epoch]).generate_state(1, np.uint64)[0]) >> 1
 
 
-def refuse_unported(args) -> None:
-    if getattr(args, "n_devices", 0) > 1:
-        raise ValueError(f"--n_devices {args.n_devices}: the port trains on one device; "
-                         "data parallelism is not ported yet (ROADMAP item 8)")
+def val_positions(n: int, batch: int, rank: int, world: int):
+    """A rank's validation samples: global batches of ``batch`` over n
+    samples, each split into ``world`` contiguous parts, the last batch
+    padded. Returns (sample index, valid) per position, batch // world
+    positions a batch; a padding position repeats sample n - 1 with valid
+    0, as one process pads its last batch."""
+    from countr_tpu_torch.parallel.mesh import rows_of
+
+    pos = [rows_of(np.arange(g * batch, (g + 1) * batch), rank, world)
+           for g in range(-(-n // batch))]
+    pos = np.concatenate(pos) if pos else np.zeros(0, np.int64)
+    return np.minimum(pos, n - 1), (pos < n).astype(np.float32)
+
+
+class _Positions:
+    """``dataset`` at the positions ``index`` (a loader's dataset)."""
+
+    def __init__(self, dataset, index):
+        self.dataset = dataset
+        self.index = index
+
+    def __len__(self) -> int:
+        return len(self.index)
+
+    def __getitem__(self, i: int):
+        return self.dataset[int(self.index[i])]
 
 
 def init_encoder(model, path: str) -> None:
@@ -131,24 +166,27 @@ class Finetune:
     ``--resident_data`` the stores) and the steps, built by ``__init__``
     (on the card every graph is captured there, before any batch), and
     ``run()``, the epochs. ``graphed``: None = CUDA graphs on the card;
-    False = eager steps."""
+    False = eager steps. As a data-parallel rank (``common.init_ranks``)
+    it trains on its slice of each global batch and validates its part of
+    each validation batch; rank 0 alone prints, logs and checkpoints."""
 
     def __init__(self, args, graphed=None):
         from countr_tpu_torch.data.fsc147 import TrainDataset, ValDataset
         from countr_tpu_torch.data.loader import DataLoader
-        from countr_tpu_torch.engine import checkpoint as ckpt
         from countr_tpu_torch.engine import train as engine
 
-        refuse_unported(args)
         self.args = args
+        self.mesh = mesh = common.init_ranks(args)
+        self.rank, self.world = (mesh.rank, mesh.world) if mesh else (0, 1)
+        self.main = self.rank == 0
         meta = common.load_meta(args)
         self.model = model = common.build_counting_model(args, training=True)
         self.device = next(model.parameters()).device
         if args.init_from_mae:
             init_encoder(model, args.init_from_mae)
-            print(f"initialized encoder from {args.init_from_mae}")
-        self.outdir = common.ensure_outdir(args)
-        self.jsonl = JsonlLogger(self.outdir)
+            rank0_print(f"initialized encoder from {args.init_from_mae}")
+        self.outdir = common.ensure_outdir(args) if self.main else (args.output_dir or None)
+        self.jsonl = JsonlLogger(self.outdir if self.main else None)
         self.device_aug = args.device_aug and not args.no_aug
         self.resident = args.resident_data and not args.no_aug
         self.pipelined = self.resident and args.resident_pipeline
@@ -164,8 +202,13 @@ class Finetune:
         self.val_ds = ValDataset(meta)
         self.train_dl = DataLoader(self.train_ds, args.batch_size, shuffle=True,
                                    num_workers=args.num_workers, drop_last=True, seed=args.seed,
-                                   use_processes=args.use_processes)
-        self.val_dl = DataLoader(self.val_ds, args.batch_size, num_workers=args.num_workers)
+                                   use_processes=args.use_processes, process_index=self.rank,
+                                   process_count=self.world)
+        self.local_batch = args.batch_size // self.world
+        val_index, self.val_valid = val_positions(len(self.val_ds), args.batch_size, self.rank,
+                                                  self.world)
+        self.val_dl = DataLoader(_Positions(self.val_ds, val_index), self.local_batch,
+                                 num_workers=args.num_workers)
         self.steps_per_epoch = len(self.train_dl)
         if args.limit_steps:
             self.steps_per_epoch = min(self.steps_per_epoch, args.limit_steps)
@@ -177,7 +220,7 @@ class Finetune:
         )
         self.state = engine.init_train_state(
             model, self.tcfg, self.steps_per_epoch,
-            args.batch_size * args.accum_iter)  # the effective batch scales blr
+            args.batch_size * args.accum_iter, mesh)  # the effective batch scales blr
         self.generator = gen = torch.Generator(device=self.device)
         if self.resident:
             from countr_tpu_torch.engine.train_store import build_val_store
@@ -199,22 +242,17 @@ class Finetune:
             # otherwise upload again every epoch
             self.val_store = build_val_store(self.val_ds, self.device)
             self.eval_step = engine.make_store_eval_step(model, self.val_store.arrays,
-                                                         graphed=graphed)
+                                                         graphed=graphed, mesh=mesh)
             self.batch_keys = engine.STORE_KEYS
         else:
             self.train_step = engine.make_finetune_step(
                 self.state, self.tcfg, gen, graphed=graphed, device_aug=self.device_aug)
             self.train_steps = (self.train_step,)
-            self.eval_step = engine.make_eval_step(model, graphed=graphed)
+            self.eval_step = engine.make_eval_step(model, graphed=graphed, mesh=mesh)
             self.batch_keys = engine.DEVICE_AUG_KEYS if self.device_aug else engine.FINETUNE_KEYS
         self.capture_s = self._capture() if hasattr(self.eval_step, "capture") else 0.0
 
-        self.start_epoch = 0
-        if args.do_resume and self.outdir:
-            last_dir = os.path.join(self.outdir, "ckpt_last")
-            if ckpt.latest_step(last_dir) is not None:
-                self.start_epoch = ckpt.restore_checkpoint(last_dir, self.state) + 1
-                print(f"resumed epoch {self.start_epoch} from {last_dir}")
+        self.start_epoch = common.resume(args, self.outdir, self.state, mesh)
         self.min_mae = float("inf")
 
     def _capture(self) -> float:
@@ -227,7 +265,7 @@ class Finetune:
         from countr_tpu_torch.engine import train as engine
 
         t0 = time.perf_counter()
-        b, hw, dev = self.args.batch_size, self.model.cfg.img_size, self.device
+        b, hw, dev = self.local_batch, self.model.cfg.img_size, self.device
         boxes = _zeros((b, 3, 64, 64, 3), torch.float32, dev)
         dots = {"dots": _zeros((b, TrainDataset.MAX_DEVICE_DOTS, 2), torch.int16, dev),
                 "n_dots": _zeros((b,), torch.int32, dev)}
@@ -275,23 +313,25 @@ class Finetune:
                    if hasattr(f, "runner"))
 
     def _val_batches(self) -> Iterator[Dict]:
-        """The validation batches padded to the full batch, with ``valid``
-        0 on the padding: the resident store's indices (wrapped around),
-        else the loader's samples (the last one repeated)."""
-        b = self.args.batch_size
+        """This rank's part of each validation batch, the last batch padded
+        with ``valid`` 0: the resident store's indices (wrapped around),
+        else the loader's samples (the last one repeated;
+        ``val_positions``)."""
+        from countr_tpu_torch.parallel.mesh import rows_of
+
+        b, lb = self.args.batch_size, self.local_batch
         if self.resident:
             n = self.val_store.n
             for i0 in range(0, n, b):
                 k = min(b, n - i0)
-                yield {"idxs": np.arange(i0, i0 + b, dtype=np.int64) % n,
-                       "valid": np.concatenate([np.ones(k, np.float32),
-                                                np.zeros(b - k, np.float32)])}
+                idxs = np.arange(i0, i0 + b, dtype=np.int64) % n
+                valid = np.concatenate([np.ones(k, np.float32), np.zeros(b - k, np.float32)])
+                yield {"idxs": rows_of(idxs, self.rank, self.world),
+                       "valid": rows_of(valid, self.rank, self.world)}
             return
-        for batch in self.val_dl.epoch(0):
-            n = batch["image"].shape[0]
-            out = {k: np.concatenate([batch[k], batch[k][-1:].repeat(b - n, 0)])
-                   for k in ("image", "gt_density", "boxes")}
-            out["valid"] = np.concatenate([np.ones(n, np.float32), np.zeros(b - n, np.float32)])
+        for i, batch in enumerate(self.val_dl.epoch(0)):
+            out = {k: batch[k] for k in ("image", "gt_density", "boxes")}
+            out["valid"] = self.val_valid[i * lb:(i + 1) * lb]
             yield out
 
     def step_metrics(self, batches: Iterator[Dict], py_rng: random.Random) -> Iterator[Dict]:
@@ -300,20 +340,23 @@ class Finetune:
         pipelined path the step that receives batch j + 1 trains batch j,
         and the epoch's last batch trains alone: the same draws, in the
         same order, as the serial path."""
+        def shot(flags) -> int:
+            return sample_shot_num(py_rng, flags, self.mesh)
+
         if not self.pipelined:
             for batch in batches:
-                yield self.train_step(batch, sample_shot_num(py_rng, batch["m_flag"]))
+                yield self.train_step(batch, shot(batch["m_flag"]))
             return
         carry = flags = None
         for batch in batches:
             if carry is None:
                 carry = self.prime(batch)
             else:
-                m, carry = self.pipe_step(carry, batch, sample_shot_num(py_rng, flags))
+                m, carry = self.pipe_step(carry, batch, shot(flags))
                 yield m
             flags = batch["m_flag"]
         if carry is not None:
-            yield self.train_phase(carry, sample_shot_num(py_rng, flags))
+            yield self.train_phase(carry, shot(flags))
 
     def train_epoch(self, epoch: int, py_rng: random.Random) -> Dict:
         """One epoch of steps on the loader's batches; returns the host
@@ -334,8 +377,8 @@ class Finetune:
                 raise SystemExit(f"Loss is not finite at epoch {epoch}")
             if args.log_every and n_steps % args.log_every == 0:
                 gstep = epoch * self.steps_per_epoch + n_steps
-                print(f"[Epoch {epoch} step {n_steps}] loss {float(m['loss']):.4f} "
-                      f"lr {self.state.schedule(gstep):.3e}", flush=True)
+                rank0_print(f"[Epoch {epoch} step {n_steps}] loss {float(m['loss']):.4f} "
+                            f"lr {self.state.schedule(gstep):.3e}", flush=True)
         sums = {k: float(v) for k, v in totals.items()} if totals else {}
         return {"loss": sums.get("loss", 0.0), "mae": sums.get("mae", 0.0),
                 "mse": sums.get("mse", 0.0), "steps": n_steps}
@@ -378,9 +421,9 @@ class Finetune:
             "lr": float(self.state.schedule(epoch * self.steps_per_epoch)),
             "epoch_time_s": time.time() - t0,
         }
-        print(f"[Epoch {epoch}] loss {stats['train/loss']:.4f} train MAE "
-              f"{stats['train/MAE']:.2f} val MAE {val_mae:.2f} val RMSE "
-              f"{stats['val/RMSE']:.2f} ({stats['epoch_time_s']:.1f}s)", flush=True)
+        rank0_print(f"[Epoch {epoch}] loss {stats['train/loss']:.4f} train MAE "
+                    f"{stats['train/MAE']:.2f} val MAE {val_mae:.2f} val RMSE "
+                    f"{stats['val/RMSE']:.2f} ({stats['epoch_time_s']:.1f}s)", flush=True)
         self.jsonl.write(stats)
         self._keep(epoch, val_mae)
         return stats
@@ -390,7 +433,7 @@ class Finetune:
         FSC_finetune_cross.py:407-420)."""
         from countr_tpu_torch.engine import checkpoint as ckpt
 
-        if not self.outdir:
+        if not self.outdir or not self.main:
             return
         args = self.args
         if args.ckpt_every and epoch % args.ckpt_every == 0 and epoch != 0:
@@ -416,12 +459,21 @@ class Finetune:
 
 
 def main(args, graphed=None) -> List[Dict]:
-    """Fine-tune per ``args``; returns each epoch's stats."""
+    """Fine-tune per ``args``; returns each epoch's stats (rank 0's, when
+    ``--n_devices`` starts the ranks here)."""
+    launched = common.launch_ranks(main, args)
+    if launched is not None:
+        return launched
     return Finetune(args, graphed=graphed).run()
 
 
 def _entry():
-    main(get_args())
+    from countr_tpu_torch.parallel import dist
+
+    try:
+        main(get_args())
+    finally:
+        dist.destroy()
 
 
 if __name__ == "__main__":

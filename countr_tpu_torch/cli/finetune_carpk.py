@@ -6,11 +6,13 @@ a local CARPK tree, one random exemplar per sample, the unmasked MSE, shot
 pinned memory; with ``--resident_data`` the decoded split lives on the
 card (``engine/carpk_store.py``) and each step ships an image index and
 the exemplar's crop maps. On the card every step is replayed from a CUDA
-graph captured before the first batch.
+graph captured before the first batch. Data parallel with ``--n_devices
+N`` (or under torchrun), as ``cli/finetune.py`` describes: the global
+``--batch_size`` must be a multiple of N, as the JAX CLI shards it over
+its mesh.
 
 Not ported, as in ROADMAP.md: the hub stream (without ``--carpk_root``
-this exits as the JAX package does without its client), ``--n_devices``
-above 1 (item 8).
+this exits as the JAX package does without its client).
 
 Usage:
   python -m countr_tpu_torch.cli.finetune_carpk --carpk_root /data/CARPK \\
@@ -30,8 +32,9 @@ import numpy as np
 import torch
 
 from countr_tpu_torch.cli import common
-from countr_tpu_torch.cli.finetune import epoch_seed, refuse_unported
+from countr_tpu_torch.cli.finetune import N_DEVICES_HELP, epoch_seed
 from countr_tpu_torch.config import TrainConfig
+from countr_tpu_torch.parallel.dist import rank0_print
 from countr_tpu_torch.utils.metrics import JsonlLogger
 
 
@@ -50,9 +53,7 @@ def get_args(argv=None):
     p.add_argument("--accum_iter", default=1, type=int)
     p.add_argument("--num_workers", default=4, type=int)
     p.add_argument("--limit_steps", default=0, type=int)
-    p.add_argument("--n_devices", default=1, type=int,
-                   help="devices to train on; the port trains on one (0 or 1), more is "
-                        "not ported yet (ROADMAP item 8)")
+    p.add_argument("--n_devices", default=1, type=int, help=N_DEVICES_HELP)
     p.add_argument("--resident_data", action="store_true",
                    help="keep the decoded train split on the card and run the resize, crop, "
                         "density and exemplar preparation there (engine.carpk_store): the "
@@ -86,18 +87,22 @@ class FinetuneCarpk:
     """The CLI's run: the model, the training state, the loader or the
     store and the step, built by ``__init__`` (on the card the step's graph
     is captured there, before any batch), and ``run()``, the epochs.
-    ``graphed``: None = CUDA graphs on the card; False = eager steps."""
+    ``graphed``: None = CUDA graphs on the card; False = eager steps. A
+    data-parallel rank (``common.init_ranks``) trains on its slice of each
+    global batch; rank 0 alone prints, logs and checkpoints."""
 
     def __init__(self, args, graphed=None):
         from countr_tpu_torch.data.carpk import load_carpk
         from countr_tpu_torch.data.loader import DataLoader
         from countr_tpu_torch.engine import train as engine
 
-        refuse_unported(args)
         self.args = args
+        self.mesh = mesh = common.init_ranks(args)
+        self.rank, self.world = (mesh.rank, mesh.world) if mesh else (0, 1)
+        self.main = self.rank == 0
         self.model = model = common.build_counting_model(args, training=True)
         self.device = next(model.parameters()).device
-        self.outdir = common.ensure_outdir(args)
+        self.outdir = common.ensure_outdir(args) if self.main else None
         self.jsonl = JsonlLogger(self.outdir)
         src = load_carpk("train", args.carpk_root)
         self.resident = args.resident_data
@@ -109,7 +114,8 @@ class FinetuneCarpk:
             steps = len(src) // args.batch_size
         else:
             self.dl = DataLoader(_TrainAdapter(src, args.seed), args.batch_size, shuffle=True,
-                                 num_workers=args.num_workers, drop_last=True, seed=args.seed)
+                                 num_workers=args.num_workers, drop_last=True, seed=args.seed,
+                                 process_index=self.rank, process_count=self.world)
             steps = len(self.dl)
         self.steps_per_epoch = max(min(steps, args.limit_steps or steps), 1)
 
@@ -121,7 +127,7 @@ class FinetuneCarpk:
             accum_iter=args.accum_iter, seed=args.seed, loss_mask_p=1.0)
         self.state = engine.init_train_state(
             model, self.tcfg, self.steps_per_epoch,
-            args.batch_size * args.accum_iter)  # the effective batch scales blr
+            args.batch_size * args.accum_iter, mesh)  # the effective batch scales blr
         self.generator = torch.Generator(device=self.device)
         if self.resident:
             self.step = engine.make_carpk_store_step(self.state, self.tcfg, self.store.arrays,
@@ -147,7 +153,7 @@ class FinetuneCarpk:
         from countr_tpu_torch.engine.carpk_store import EX
 
         t0 = time.perf_counter()
-        b, hw, dev = self.args.batch_size, self.model.cfg.img_size, self.device
+        b, hw, dev = self.args.batch_size // self.world, self.model.cfg.img_size, self.device
         if self.resident:
             # a valid geometry (the warm-up runs it): image 0, every tap at 0
             i32 = torch.zeros((b, EX), dtype=torch.int32, device=dev)
@@ -171,7 +177,10 @@ class FinetuneCarpk:
         """The epoch's host batches: the loader's samples, or on the
         resident path each batch's indices and exemplar maps, from per-epoch
         seeded streams (a resumed run at epoch N would draw what an
-        uninterrupted run draws at epoch N)."""
+        uninterrupted run draws at epoch N); a rank's rows of each global
+        batch."""
+        from countr_tpu_torch.parallel.mesh import rows_of
+
         if not self.resident:
             yield from self.dl.epoch(epoch)
             return
@@ -184,7 +193,7 @@ class FinetuneCarpk:
             idxs = order[base : base + bs]
             geo = exemplar_geometry(host_rng, self.store, idxs)
             geo["img_idx"] = idxs.astype(np.int32)
-            yield geo
+            yield {k: rows_of(v, self.rank, self.world) for k, v in geo.items()}
 
     def step_metrics(self, batches: Iterator[Dict]) -> Iterator[Dict]:
         """Train on ``batches`` (on the device): each step's metrics."""
@@ -220,8 +229,8 @@ class FinetuneCarpk:
                  "epoch_time_s": time.time() - t0}
         if not np.isfinite(stats["train/loss"]):
             raise SystemExit(f"Loss is not finite at epoch {epoch}")
-        print(f"[CARPK e{epoch}] loss {stats['train/loss']:.4f} MAE {stats['train/MAE']:.2f}",
-              flush=True)
+        rank0_print(f"[CARPK e{epoch}] loss {stats['train/loss']:.4f} "
+                    f"MAE {stats['train/MAE']:.2f}", flush=True)
         self.jsonl.write(stats)
         if self.outdir:
             ckpt.save_checkpoint(os.path.join(self.outdir, "ckpt_last"), epoch, self.state,
@@ -240,12 +249,21 @@ class FinetuneCarpk:
 
 
 def main(args, graphed=None) -> List[Dict]:
-    """Fine-tune on CARPK per ``args``; returns each epoch's stats."""
+    """Fine-tune on CARPK per ``args``; returns each epoch's stats (rank
+    0's, when ``--n_devices`` starts the ranks here)."""
+    launched = common.launch_ranks(main, args)
+    if launched is not None:
+        return launched
     return FinetuneCarpk(args, graphed=graphed).run()
 
 
 def _entry():
-    main(get_args())
+    from countr_tpu_torch.parallel import dist
+
+    try:
+        main(get_args())
+    finally:
+        dist.destroy()
 
 
 if __name__ == "__main__":

@@ -12,10 +12,10 @@ decoded train split lives on the card as a column-major uint8 pool
 (``engine/train_store.py PretrainStore``), the host draws only each crop's
 scalars (~30 bytes a sample), and the step materialises the crops with two
 bicubic band products. On the card every step is replayed from a CUDA graph
-captured before the first batch.
-
-Not ported yet, and refused with the ROADMAP item: ``--n_devices`` above
-1 (item 8). W&B is not carried.
+captured before the first batch. Data parallel with ``--n_devices N`` (or
+under torchrun), as ``cli/finetune.py`` describes: each rank loads its
+slice of the global batch and draws the masking noise at the global
+batch's shape, keeping its rows. W&B is not carried.
 
 Usage:
   python -m countr_tpu_torch.cli.pretrain --data_path ./data/FSC147 \\
@@ -36,8 +36,9 @@ import numpy as np
 import torch
 
 from countr_tpu_torch.cli import common
-from countr_tpu_torch.cli.finetune import epoch_seed, refuse_unported
+from countr_tpu_torch.cli.finetune import N_DEVICES_HELP, epoch_seed
 from countr_tpu_torch.config import TrainConfig
+from countr_tpu_torch.parallel.dist import rank0_print
 from countr_tpu_torch.utils.metrics import JsonlLogger, TBWriter
 
 
@@ -79,9 +80,7 @@ def get_args(argv=None):
                    help="steps between reconstruction panels in TensorBoard "
                         "(reference: FSC_pretrain.py:267-291)")
     p.add_argument("--limit_steps", default=0, type=int, help="cap steps/epoch (smoke tests)")
-    p.add_argument("--n_devices", default=0, type=int,
-                   help="devices to train on; the port trains on one (0 or 1), more is "
-                        "not ported yet (ROADMAP item 8)")
+    p.add_argument("--n_devices", default=0, type=int, help=N_DEVICES_HELP)
     return p.parse_args(argv)
 
 
@@ -154,23 +153,27 @@ class Pretrain:
     ``--resident_data`` the store) and the step, built by ``__init__`` (on
     the card the step's graphs are captured there, before any batch), and
     ``run()``, the epochs. ``graphed``: None = CUDA graphs on the card;
-    False = eager steps."""
+    False = eager steps. A data-parallel rank (``common.init_ranks``)
+    trains on its slice of each global batch; rank 0 alone prints, logs
+    and checkpoints."""
 
     def __init__(self, args, graphed=None):
         from countr_tpu_torch.data.fsc147 import PretrainDataset
         from countr_tpu_torch.data.loader import DataLoader
-        from countr_tpu_torch.engine import checkpoint as ckpt
         from countr_tpu_torch.engine import train as engine
         from countr_tpu_torch.engine import train_store
 
-        refuse_unported(args)
         self.args = args
+        self.mesh = mesh = common.init_ranks(args)
+        self.rank, self.world = (mesh.rank, mesh.world) if mesh else (0, 1)
+        self.main = self.rank == 0
         meta = common.load_meta(args)
         self.model = model = build_mae_model(args)
         self.device = next(model.parameters()).device
-        self.outdir = common.ensure_outdir(args)
-        self.jsonl = JsonlLogger(self.outdir)
-        self.tb = TBWriter(os.path.join(self.outdir, "tb") if self.outdir else None)
+        self.outdir = common.ensure_outdir(args) if self.main else (args.output_dir or None)
+        logs = self.outdir if self.main else None
+        self.jsonl = JsonlLogger(logs)
+        self.tb = TBWriter(os.path.join(logs, "tb") if logs else None)
         self.resident = args.resident_data
         self.store = None
         if self.resident:
@@ -178,8 +181,9 @@ class Pretrain:
         self.train_ds = PretrainDataset(meta, seed=args.seed,
                                   store=self.store.catalog if self.resident else None)
         self.train_dl = DataLoader(self.train_ds, args.batch_size, shuffle=True,
-                             num_workers=args.num_workers, drop_last=True, seed=args.seed,
-                             use_processes=args.use_processes)
+                                   num_workers=args.num_workers, drop_last=True, seed=args.seed,
+                                   use_processes=args.use_processes, process_index=self.rank,
+                                   process_count=self.world)
         self.steps_per_epoch = len(self.train_dl)
         if args.limit_steps:
             self.steps_per_epoch = min(self.steps_per_epoch, args.limit_steps)
@@ -191,7 +195,7 @@ class Pretrain:
         )
         self.state = engine.init_train_state(
             model, self.tcfg, self.steps_per_epoch,
-            args.batch_size * args.accum_iter)  # the effective batch scales blr
+            args.batch_size * args.accum_iter, mesh)  # the effective batch scales blr
         self.generator = gen = torch.Generator(device=self.device)
         if self.resident:
             self.train_step = engine.make_store_pretrain_step(
@@ -203,12 +207,7 @@ class Pretrain:
             self.batch_keys = ("image",)
         self.capture_s = self._capture() if hasattr(self.train_step, "capture") else 0.0
 
-        self.start_epoch = 0
-        if args.do_resume and self.outdir:
-            last_dir = os.path.join(self.outdir, "ckpt_last")
-            if ckpt.latest_step(last_dir) is not None:
-                self.start_epoch = ckpt.restore_checkpoint(last_dir, self.state) + 1
-                print(f"resumed epoch {self.start_epoch} from {last_dir}")
+        self.start_epoch = common.resume(args, self.outdir, self.state, mesh)
 
     def _inputs(self, batch: Dict):
         """The step's argument of a batch on the device."""
@@ -219,7 +218,7 @@ class Pretrain:
         accumulation) on a batch of the loader's shapes and dtypes; returns
         seconds."""
         t0 = time.perf_counter()
-        b, hw, dev = self.args.batch_size, self.model.cfg.img_size, self.device
+        b, hw, dev = self.args.batch_size // self.world, self.model.cfg.img_size, self.device
         if self.resident:
             # a valid crop (the warm-up runs it): image 0's top-left 384^2
             i32 = functools.partial(torch.full, dtype=torch.int32, device=dev)
@@ -246,7 +245,7 @@ class Pretrain:
         for batch in batches:
             m = self.train_step(self._inputs(batch))
             gstep += 1
-            if args.log_every and gstep % args.log_every == 0:
+            if args.log_every and gstep % args.log_every == 0 and self.main:
                 loss, lr = float(m["loss"]), self.state.schedule(gstep)
                 self.tb.scalar("train/loss_step", loss, gstep)
                 self.tb.scalar("train/lr_step", lr, gstep)
@@ -301,8 +300,8 @@ class Pretrain:
             "lr": float(self.state.schedule(epoch * self.steps_per_epoch)),
             "epoch_time_s": time.time() - t0,
         }
-        print(f"[Epoch {epoch}] loss {stats['train/loss']:.4f} lr {stats['lr']:.2e} "
-              f"({stats['epoch_time_s']:.1f}s)", flush=True)
+        rank0_print(f"[Epoch {epoch}] loss {stats['train/loss']:.4f} lr {stats['lr']:.2e} "
+                    f"({stats['epoch_time_s']:.1f}s)", flush=True)
         self.jsonl.write(stats)
         self.tb.scalar("train/loss", stats["train/loss"], epoch)
         self._keep(epoch)
@@ -315,7 +314,7 @@ class Pretrain:
         ``--ckpt_last_every`` epochs and at the last."""
         from countr_tpu_torch.engine import checkpoint as ckpt
 
-        if not self.outdir:
+        if not self.outdir or not self.main:
             return
         args = self.args
         last = epoch + 1 == args.epochs
@@ -340,12 +339,21 @@ class Pretrain:
 
 
 def main(args, graphed=None) -> List[Dict]:
-    """Pretrain per ``args``; returns each epoch's stats."""
+    """Pretrain per ``args``; returns each epoch's stats (rank 0's, when
+    ``--n_devices`` starts the ranks here)."""
+    launched = common.launch_ranks(main, args)
+    if launched is not None:
+        return launched
     return Pretrain(args, graphed=graphed).run()
 
 
 def _entry():
-    main(get_args())
+    from countr_tpu_torch.parallel import dist
+
+    try:
+        main(get_args())
+    finally:
+        dist.destroy()
 
 
 if __name__ == "__main__":

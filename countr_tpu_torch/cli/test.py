@@ -45,8 +45,8 @@ def get_args(argv=None):
                    help="images pooled per count_batch call")
     p.add_argument("--batch_windows", default=16, type=int)
     p.add_argument("--n_devices", default=0, type=int,
-                   help="devices to shard window batches over; the port runs on "
-                        "one (0 or 1), more is not ported yet")
+                   help="split each window batch over the first N devices (0 or 1: "
+                        "one; --batch_windows must be a multiple of N)")
     p.add_argument("--narrow_policy", default="pad", choices=["pad", "reference"])
     p.add_argument("--save_viz", action="store_true",
                    help="write per-image overlay panels")

@@ -73,10 +73,11 @@ def chunk_plan(n: int, b: int, multiple: int = 1):
     return out
 
 
-def forward_buckets(b: int):
+def forward_buckets(b: int, multiple: int = 1):
     """Every window count ``chunk_plan`` can give the forward at batch
-    ``b``: b, and the tail buckets that fit under it."""
-    return sorted({b, *(s for s in TAIL_BUCKETS if s <= b)})
+    ``b``: b, and the tail buckets that fit under it (those ``multiple``
+    divides, as ``chunk_plan`` picks them)."""
+    return sorted({b, *(s for s in TAIL_BUCKETS if s <= b and s % multiple == 0)})
 
 
 def _to_unit(win: torch.Tensor) -> torch.Tensor:
@@ -180,15 +181,16 @@ def _chunk_windows(images, plan: dict, dev: dict, i: int, j: int, bk: int) -> to
 
 
 def stitch_set(forward, images, y_all, plan: dict, dev: dict, n_den_rows: int,
-               den_width: int, batch_windows: int) -> torch.Tensor:
+               den_width: int, batch_windows: int, multiple: int = 1) -> torch.Tensor:
     """Every chunk of a set through ``forward(windows, y)`` and stitched:
     -> density [n_den_rows, 384, den_width] fp32. Padded forward slots
     take image 0's exemplar tokens, as in the JAX package, and are not
-    stitched."""
+    stitched. Every chunk's window count is a multiple of ``multiple``
+    (the devices a sharded forward splits it over)."""
     density = torch.zeros((n_den_rows, WINDOW, den_width), dtype=torch.float32,
                           device=images.device)
     n = plan["img_owner"].shape[0]
-    for i, j, bk in stream_chunks(plan["n_plain"], n, batch_windows):
+    for i, j, bk in stream_chunks(plan["n_plain"], n, batch_windows, multiple):
         owners = dev["img_owner"][i:j]
         if bk > j - i:
             owners = torch.cat([owners, owners.new_zeros(bk - (j - i))])
@@ -231,7 +233,8 @@ def fused_set_program(engine, sp: dict, shot_num: int = 3):
     def preds_fn(images, bstack, plan_dev, rects, rvalid, row_owner, last_row):
         y_all = model.encode_exemplars(bstack, shot_num)
         density = stitch_set(forward, images, y_all, plan, plan_dev, sp["r_bucket"],
-                             sp["den_width"], engine.batch_windows)
+                             sp["den_width"], engine.batch_windows,
+                             len(engine._pipeline.devices))
         counts, esum = finalize(density, rects, rvalid)
         # per-image sums as a masked reduce in a fixed order (no atomics)
         onehot = row_owner[None, :] == torch.arange(n_img, device=counts.device)[:, None]
@@ -251,21 +254,58 @@ def fused_set_program(engine, sp: dict, shot_num: int = 3):
 
 
 class DevicePipeline:
-    """One set at a time through the device stages, on one device (the
-    multi-device mesh of the JAX package is not ported yet). On a CUDA
-    device the window forward is ``GraphedForward``; on the CPU it runs
-    eagerly."""
+    """One set at a time through the device stages. On a CUDA device the
+    window forward is ``GraphedForward``; on the CPU it runs eagerly.
 
-    def __init__(self, model, device: torch.device):
+    ``devices`` (the lead, ``device``, first): the JAX package's
+    ``DevicePipeline(mesh=...)`` in one process. The model is copied to
+    each other device once (``parallel.mesh.replicate_to_mesh``; again
+    when the lead's weights change), each window chunk is split into
+    equal parts, one per device, each part forwarded by its device's own
+    forward (one ``GraphedForward`` per device and bucket), and the parts'
+    densities gathered on the lead device for the stitch. Every chunk is
+    a multiple of the device count, so ``batch_windows`` must be one: it
+    raises otherwise, where the JAX package warns and runs on one device
+    (``countr_tpu/engine/device_pipeline.py:429-438``)."""
+
+    def __init__(self, model, device: torch.device, devices=None, batch_windows: int = 16):
         self.model = model
         self.device = device
-        if device.type == "cuda":
-            from countr_tpu_torch.engine.graphs import GraphedForward
+        self.devices = (device,)
+        if devices:
+            lead, *rest = (torch.device(d) for d in devices)
+            if (lead.type, lead.index or 0) != (device.type, device.index or 0):
+                raise ValueError(f"the lead device {lead} must be {device}")
+            self.devices += tuple(rest)
+        n = len(self.devices)
+        if batch_windows % n:
+            raise ValueError(f"batch_windows {batch_windows} is not a multiple of the "
+                             f"{n} devices it is split over")
+        self.replicas = [model]
+        if n > 1:
+            from countr_tpu_torch.parallel.mesh import Mesh, replicate_to_mesh
 
-            self.forward = GraphedForward(model)
-        else:
-            self.forward = model.forward_tokens
+            self.replicas = replicate_to_mesh(Mesh(self.devices), model)
+            self._weights = self._signature()
+        self.forwards = [_device_forward(m, d) for m, d in zip(self.replicas, self.devices)]
+        self.forward = self.forwards[0] if n == 1 else self._sharded_forward
         self._in_flight: list = []  # (event, pinned host buffers) per upload batch
+
+    def _signature(self) -> tuple:
+        return tuple((t.data_ptr(), t._version) for t in self.model.state_dict().values())
+
+    def _sharded_forward(self, windows: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """The forward of one chunk split over the devices, gathered on the
+        lead device in the chunk's order."""
+        sig = self._signature()
+        if sig != self._weights:
+            for replica in self.replicas[1:]:
+                replica.load_state_dict(self.model.state_dict())
+            self._weights = sig
+        n = len(self.devices)
+        parts = [f(w.to(d), yy.to(d)) for f, d, w, yy in
+                 zip(self.forwards, self.devices, windows.chunk(n), y.chunk(n))]
+        return torch.cat([p.to(self.device) for p in parts])
 
     def upload(self, arrays) -> list:
         """Host arrays (numpy or CPU tensors) -> device tensors. To a card:
@@ -317,6 +357,16 @@ class DevicePipeline:
             [images_np, rects_np, rect_valid_np] + [plan[k] for k in keys])
         dev = dict(zip(keys, arrays))
         density = stitch_set(self.forward, images, y_all, plan, dev, n_den_rows, den_width,
-                             batch_windows)
+                             batch_windows, len(self.devices))
         counts, esum = finalize(density, rects, valid)
         return counts, esum, (density if want_density else None)
+
+
+def _device_forward(model, device: torch.device):
+    """The window forward on ``device``: ``GraphedForward`` on a card,
+    eager on the CPU."""
+    if device.type == "cuda":
+        from countr_tpu_torch.engine.graphs import GraphedForward
+
+        return GraphedForward(model)
+    return model.forward_tokens

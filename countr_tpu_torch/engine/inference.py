@@ -100,6 +100,9 @@ class CountingEngine:
     normalization: apply test-time normalization (reference default).
     max_s_cnt: grid-mode trigger threshold (reference --max_s_cnt=1).
     device: None = the CUDA card (raises without one); "cpu" on request.
+    devices: ``count_batch``'s window chunks split over these devices
+      (``device`` first; ``DevicePipeline``): the JAX package's ``mesh``.
+      ``batch_windows`` must be a multiple of their number.
     """
 
     def __init__(
@@ -116,6 +119,7 @@ class CountingEngine:
         max_s_cnt: int = 1,
         narrow_policy: str = "pad",
         device=None,
+        devices=None,
     ):
         self.device = resolve_device(device)
         # an fp32 stage (the fp32 model, the mixed modes' head) runs its
@@ -133,7 +137,7 @@ class CountingEngine:
         self.narrow_policy = narrow_policy
         self.forward_batches = 0  # model forwards run by count (window batches)
         self.h2d_bytes = 0  # pixel, exemplar and plan bytes count_batch uploaded
-        self._pipeline = DevicePipeline(self.model, self.device)
+        self._pipeline = DevicePipeline(self.model, self.device, devices, batch_windows)
 
     @torch.inference_mode()
     def _forward_windows(self, windows: torch.Tensor, y: torch.Tensor) -> np.ndarray:
@@ -256,15 +260,15 @@ class CountingEngine:
         the CPU. Returns the number of graphs held."""
         if self.device.type != "cuda":
             return 0
-        forward = self._pipeline.forward
+        pipe = self._pipeline
         dd = self.model.cfg.decoder_embed_dim
-        for bk in forward_buckets(self.batch_windows):
+        for bk in forward_buckets(self.batch_windows, len(pipe.devices)):
             windows = torch.zeros((bk, WINDOW, WINDOW, 3), device=self.device)
             for shot in shot_nums:
                 y = torch.zeros((bk, max(shot, 1), dd), device=self.device,
                                 dtype=self.model.dec_dtype)
-                forward(windows, y)
-        return len(forward.runner)
+                pipe.forward(windows, y)
+        return sum(len(f.runner) for f in pipe.forwards)
 
     def _grid_rows(self, image: torch.Tensor) -> torch.Tensor:
         """The 9 grid crops of an [h, w, 3] image tensor, each resized back

@@ -30,6 +30,7 @@ import functools
 from typing import Callable, Dict, Mapping, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from countr_tpu_torch.config import DENSITY_SCALE, TrainConfig
@@ -38,6 +39,7 @@ from countr_tpu_torch.models.vit import casts_at_use
 from countr_tpu_torch.ops.augment import (
     augment_batch, density_from_dots, draw_photometric, photometric,
 )
+from countr_tpu_torch.parallel.mesh import rows_of
 
 
 def decay_mask(model: nn.Module) -> Dict[str, bool]:
@@ -102,6 +104,46 @@ def make_optimizer(
     return opt, sched
 
 
+def _flat_buffers(params) -> Tuple[list, list]:
+    """One zeroed flat buffer per dtype over ``params``, and each
+    parameter's gradient as a view of its buffer, in ``params``' order."""
+    by_dtype: Dict = {}
+    for p in params:
+        by_dtype.setdefault(p.dtype, []).append(p)
+    flats, views = [], {}
+    for ps in by_dtype.values():
+        flat = torch.zeros(sum(p.numel() for p in ps), dtype=ps[0].dtype, device=ps[0].device)
+        off = 0
+        for p in ps:
+            views[id(p)] = flat[off:off + p.numel()].view(p.shape)
+            off += p.numel()
+        flats.append(flat)
+    return flats, [views[id(p)] for p in params]
+
+
+def all_reduce_mean(t: torch.Tensor, group, world: int) -> torch.Tensor:
+    """``t`` averaged across the ranks of ``group``, in place: a SUM
+    all-reduce, then the division (gloo has no AVG). At world 1 nothing is
+    divided, so the step keeps the bits it has without a group."""
+    dist.all_reduce(t, group=group)
+    if world > 1:
+        t.div_(world)
+    return t
+
+
+def _across(metrics: Dict, group, world: int, mean: bool) -> Dict:
+    """0-d ``metrics`` averaged (``mean``) or summed across the ranks of
+    ``group`` in one all-reduce; as they are without a group."""
+    if group is None:
+        return metrics
+    t = torch.stack(list(metrics.values()))
+    if mean:
+        all_reduce_mean(t, group, world)
+    else:
+        dist.all_reduce(t, group=group)
+    return dict(zip(metrics, t.unbind()))
+
+
 class TrainState:
     """The model, its AdamW and LR schedule, and the counts ``step``
     (mini-steps taken: the JAX TrainState's ``step``) and ``updates``
@@ -122,10 +164,21 @@ class TrainState:
     the running mean, acc + (g - acc) / (n + 1); the first accum_iter - 1
     mini-steps leave the parameters, moments and ``updates`` untouched,
     and the last applies AdamW to the mean at lr = schedule(updates) and
-    clears the accumulator."""
+    clears the accumulator.
+
+    Data parallelism (``mesh``, a rank's ``parallel.mesh.Mesh``): each
+    rank's gradients are views of one flat buffer per dtype, averaged
+    across the ranks by one all-reduce per buffer before the accumulation
+    (``apply_gradients``), and the steps average their metrics and sum the
+    eval's error sums the same way; on the card the collectives are
+    captured in the steps' graphs. Every per-sample random value is drawn
+    at the global batch's shape and the rank keeps its rows, and every
+    shared one (the loss mask) from a generator seeded alike on every
+    rank, so that N ranks compute what one process computes on the global
+    batch."""
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
-                 schedule: Callable[[int], float], accum_iter: int = 1):
+                 schedule: Callable[[int], float], accum_iter: int = 1, mesh=None):
         if accum_iter < 1:
             raise ValueError(f"accum_iter must be >= 1; got {accum_iter}")
         self.model = model
@@ -134,10 +187,12 @@ class TrainState:
         self.accum_iter = accum_iter
         self.step = 0
         self.updates = 0
+        self.group = mesh.group if mesh is not None else None
+        self.rank, self.world = (mesh.rank, mesh.world) if mesh is not None else (0, 1)
         self.params = [p for g in optimizer.param_groups for p in g["params"]]
         self.device = self.params[0].device
         with torch.no_grad():
-            self.grads = [torch.zeros_like(p) for p in self.params]
+            self.flat, self.grads = _flat_buffers(self.params)
             self.acc = [torch.zeros_like(p) for p in self.params] if accum_iter > 1 else []
             self.divisor = torch.ones((), device=self.device)  # n + 1 of MultiSteps
             for group in optimizer.param_groups:
@@ -159,8 +214,9 @@ class TrainState:
 
     def mutable(self) -> list:
         """Every tensor a step writes: the trainable parameters, their
-        gradients, Adam's tensors and the accumulator."""
-        return (list(self.params) + self.grads + self.acc
+        gradients (the flat buffers they are views of), Adam's tensors and
+        the accumulator."""
+        return (list(self.params) + self.flat + self.acc
                 + [t for p in self.params for t in self.moments(p)])
 
     def begin_step(self) -> bool:
@@ -185,13 +241,19 @@ class TrainState:
         return update
 
     def zero_grads(self) -> None:
-        torch._foreach_zero_(self.grads)
+        torch._foreach_zero_(self.flat)
 
     def apply_gradients(self, update: bool) -> None:
-        """The device's part after the backward: fold the gradients into
-        the accumulator (MultiSteps' acc + (g - acc) / (n + 1), in that
-        order of operations) and, on an update, AdamW on the mean (the
-        gradients themselves without accumulation)."""
+        """The device's part after the backward: on a data-parallel rank,
+        average the gradients across the ranks (one all-reduce per flat
+        buffer: the global batch's gradient, since every rank's loss is a
+        mean over the same number of samples); fold them into the
+        accumulator (MultiSteps' acc + (g - acc) / (n + 1), in that order
+        of operations) and, on an update, AdamW on the mean (the gradients
+        themselves without accumulation)."""
+        if self.group is not None:
+            for flat in self.flat:
+                all_reduce_mean(flat, self.group, self.world)
         if self.accum_iter > 1:
             torch._foreach_sub_(self.grads, self.acc)
             torch._foreach_div_(self.grads, self.divisor)
@@ -209,10 +271,10 @@ class TrainState:
 
 
 def init_train_state(
-    model: nn.Module, cfg: TrainConfig, steps_per_epoch: int, world_batch: int,
+    model: nn.Module, cfg: TrainConfig, steps_per_epoch: int, world_batch: int, mesh=None,
 ) -> TrainState:
     opt, sched = make_optimizer(model, cfg, steps_per_epoch, world_batch)
-    return TrainState(model, opt, sched, cfg.accum_iter)
+    return TrainState(model, opt, sched, cfg.accum_iter, mesh)
 
 
 def _resolve_graphed(device: torch.device, graphed) -> bool:
@@ -329,7 +391,8 @@ def _finetune_device(state: TrainState, imgs, gt, boxes, shot_num: int, mask,
     loss.backward()
     state.apply_gradients(update)
     err = count_errors(out.detach(), gt)
-    return {"loss": loss.detach(), "mae": err.mean(), "mse": err.square().mean()}
+    return _across({"loss": loss.detach(), "mae": err.mean(), "mse": err.square().mean()},
+                   state.group, state.world, mean=True)
 
 
 def finetune_core(state: TrainState, imgs, gt, boxes, shot_num: int, mask) -> Dict:
@@ -378,7 +441,7 @@ def make_finetune_step(
 
     def device_step(*ins, shot_num: int, update: bool) -> Dict:
         if device_aug:
-            imgs, gt = augment_batch(*ins[:4], gen)
+            imgs, gt = augment_batch(*ins[:4], gen, rank=state.rank, world=state.world)
         else:
             imgs, gt = ins[0], ins[1].float()
         mask = loss_mask(hw, cfg.loss_mask_p, gen)
@@ -399,7 +462,8 @@ CARPK_KEYS = ("img_idx", "bx0", "bx1", "bwx", "by0", "by1", "bwy", "ex_valid")
 
 
 def materialize_train_batch(store_arrays: Mapping, geo: Mapping, generator: torch.Generator,
-                            hw: int, loss_mask_p: float, n_mosaic=None) -> Dict:
+                            hw: int, loss_mask_p: float, n_mosaic=None, rank: int = 0,
+                            world: int = 1) -> Dict:
     """A store batch's training inputs, on the store's device (the JAX
     ``_materialize_train_batch``): the pixels materialised from the pool
     (affine or mosaic), the photometric chain on the samples that are not
@@ -408,12 +472,14 @@ def materialize_train_batch(store_arrays: Mapping, geo: Mapping, generator: torc
     The generator draws the photometric factors, then the mask: the
     pipelined step materialises batch j + 1 before it trains batch j and
     carries the mask, so that it draws what the serial step draws, in the
-    same order. Returns {'imgs', 'gt', 'boxes', 'mask'} (``CARRY_KEYS``)."""
+    same order. A data-parallel rank (``rank`` of ``world``) draws the
+    global batch's factors and keeps its rows. Returns {'imgs', 'gt',
+    'boxes', 'mask'} (``CARRY_KEYS``)."""
     from countr_tpu_torch.engine.train_store import materialize_batch
 
     imgs, boxes = materialize_batch(store_arrays, geo, n_mosaic)
     b, h, w = imgs.shape[:3]
-    draws = draw_photometric(b, h, w, generator)
+    draws = draw_photometric(b, h, w, generator, rank=rank, world=world)
     clean = geo["is_mosaic"].reshape(b, 1, 1, 1) > 0
     imgs = torch.where(clean, imgs, photometric(imgs, draws))
     gt = density_from_dots(geo["dots"], geo["n_dots"], h, w)
@@ -438,7 +504,7 @@ def make_store_finetune_step(
 
     def device_step(*ins, shot_num: int, update: bool) -> Dict:
         c = materialize_train_batch(store_arrays, dict(zip(STORE_KEYS, ins)), gen, hw,
-                                    cfg.loss_mask_p, n_mosaic)
+                                    cfg.loss_mask_p, n_mosaic, state.rank, state.world)
         return _finetune_device(state, c["imgs"], c["gt"], c["boxes"], shot_num, c["mask"],
                                 update)
 
@@ -462,7 +528,7 @@ def make_store_materialize(
     def device_fn(*ins) -> Dict:
         with torch.no_grad():
             return materialize_train_batch(store_arrays, dict(zip(STORE_KEYS, ins)), gen, hw,
-                                           cfg.loss_mask_p, n_mosaic)
+                                           cfg.loss_mask_p, n_mosaic, state.rank, state.world)
 
     def inputs(batch):
         return tuple(batch[k] for k in STORE_KEYS)
@@ -511,7 +577,7 @@ def make_store_finetune_step_pipelined(
         m = _finetune_device(state, imgs, gt, boxes, shot_num, mask, update)
         with torch.no_grad():
             c = materialize_train_batch(store_arrays, dict(zip(STORE_KEYS, ins[n:])), gen, hw,
-                                        cfg.loss_mask_p, n_mosaic)
+                                        cfg.loss_mask_p, n_mosaic, state.rank, state.world)
         return {**m, **{"next_" + k: v for k, v in c.items()}}
 
     inner = _train_step(state, device_step, gen, graphed, lambda carry, batch, shot_num: (
@@ -619,37 +685,43 @@ def _eval_step(device: torch.device, device_eval, inputs, graphed):
     return eval_fn
 
 
-def make_eval_step(model: nn.Module, graphed: bool | None = None):
+def make_eval_step(model: nn.Module, graphed: bool | None = None, mesh=None):
     """Returns eval(batch, shot_num) -> masked error SUMS ``err_sum``,
     ``sq_sum``, ``nae_sum`` and ``n`` (reference val loop:
     FSC_finetune_cross.py:328-350) of batch {'image', 'gt_density',
-    'boxes', 'valid'}; ``valid`` masks padding samples. Graphs as in
-    ``_eval_step``."""
+    'boxes', 'valid'}; ``valid`` masks padding samples. On a data-parallel
+    rank (``mesh``) the sums are the global ones, summed across the ranks
+    in the step. Graphs as in ``_eval_step``."""
+    group, world = _group_of(mesh)
 
     def device_eval(image, gt, boxes, valid, *, shot_num: int) -> Dict:
         out = model(image, boxes, shot_num)
         gt = gt.float()
-        return _error_sums(out.sum(dim=(1, 2)) / DENSITY_SCALE,
-                           gt.sum(dim=(1, 2)) / DENSITY_SCALE, valid)
+        return _across(_error_sums(out.sum(dim=(1, 2)) / DENSITY_SCALE,
+                                   gt.sum(dim=(1, 2)) / DENSITY_SCALE, valid),
+                       group, world, mean=False)
 
     return _eval_step(next(model.parameters()).device, device_eval, lambda batch: (
         batch["image"], batch["gt_density"], batch["boxes"], batch["valid"]), graphed)
 
 
-def make_store_eval_step(model: nn.Module, val_arrays: Mapping, graphed: bool | None = None):
+def make_store_eval_step(model: nn.Module, val_arrays: Mapping, graphed: bool | None = None,
+                         mesh=None):
     """Returns eval(batch, shot_num) -> the sums of ``make_eval_step`` over
     the resident validation samples (``ValStore.arrays``) at batch['idxs']
     [B], with batch['valid'] [B] (the JAX ``make_store_eval_step``): the
     per-epoch upload is the index vectors. The true counts are the store's
-    precomputed ones. Graphs as in ``_eval_step``."""
+    precomputed ones. ``mesh`` and graphs as in ``make_eval_step``."""
     from countr_tpu_torch.engine.train_store import INV_255
+
+    group, world = _group_of(mesh)
 
     def device_eval(idxs, valid, *, shot_num: int) -> Dict:
         idxs = idxs.long()
         imgs = val_arrays["images"][idxs].float() * INV_255
         out = model(imgs, val_arrays["boxes"][idxs], shot_num)
-        return _error_sums(out.sum(dim=(1, 2)) / DENSITY_SCALE, val_arrays["gt_cnt"][idxs],
-                           valid)
+        return _across(_error_sums(out.sum(dim=(1, 2)) / DENSITY_SCALE,
+                                   val_arrays["gt_cnt"][idxs], valid), group, world, mean=False)
 
     return _eval_step(next(model.parameters()).device, device_eval,
                       lambda batch: (batch["idxs"], batch["valid"]), graphed)
@@ -657,12 +729,20 @@ def make_store_eval_step(model: nn.Module, val_arrays: Mapping, graphed: bool | 
 
 def _pretrain_device(state: TrainState, imgs, noise, generator, update: bool) -> Dict:
     """The device's part of an MAE pretrain mini-step: the masking noise is
-    ``noise`` or, if None, drawn from ``generator``."""
+    ``noise`` or, if None, drawn from ``generator`` at the global batch's
+    shape [B * world, L], this rank's rows kept (what the model draws
+    itself at world 1)."""
+    if noise is None:
+        p = state.model.cfg.patch_size
+        n_patches = (imgs.shape[1] // p) * (imgs.shape[2] // p)
+        noise = rows_of(torch.rand((imgs.shape[0] * state.world, n_patches),
+                                   generator=generator, device=generator.device),
+                        state.rank, state.world)
     state.zero_grads()
-    loss, _, _ = state.model(imgs, noise=noise, generator=None if noise is not None else generator)
+    loss, _, _ = state.model(imgs, noise=noise)
     loss.backward()
     state.apply_gradients(update)
-    return {"loss": loss.detach()}
+    return _across({"loss": loss.detach()}, state.group, state.world, mean=True)
 
 
 def make_pretrain_step(
@@ -714,6 +794,11 @@ def make_store_pretrain_step(
 
     return _train_step(state, device_step, gen, graphed, lambda batch, noise=None: (
         tuple(batch[k] for k in PRETRAIN_KEYS) + (() if noise is None else (noise,)), {}))
+
+
+def _group_of(mesh) -> tuple:
+    """(group, world) of a data-parallel ``mesh``, (None, 1) without."""
+    return (mesh.group, mesh.world) if mesh is not None else (None, 1)
 
 
 ENCODER_PREFIXES = ("patch_embed.", "norm.")

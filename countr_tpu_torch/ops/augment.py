@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from countr_tpu_torch.config import DENSITY_SCALE, IMG_SIZE
+from countr_tpu_torch.parallel.mesh import rows_of
 
 _GRAY = (0.299, 0.587, 0.114)  # ITU-R 601, as the host path
 JITTER = (0.25, 0.15, 0.15, 0.15)  # brightness, contrast, saturation, hue
@@ -55,14 +56,18 @@ BLUR_SIGMA = (0.1, 2.0)
 
 def draw_photometric(b: int, h: int, w: int, generator: torch.Generator,
                      noise_std: float = NOISE_STD, jitter=JITTER,
-                     sigma_range: Tuple[float, float] = BLUR_SIGMA) -> Dict[str, torch.Tensor]:
+                     sigma_range: Tuple[float, float] = BLUR_SIGMA, rank: int = 0,
+                     world: int = 1) -> Dict[str, torch.Tensor]:
     """Every random factor of ``photometric`` for a batch of b [h, w, 3]
     images, from ``generator`` on its device: ``noise`` [b, h, w, 3]
     (already times noise_std), ``factors`` [b, 4] (brightness, contrast
     and saturation factors uniform around 1, the hue shift uniform in
     +-hue, as a fraction of a turn), ``perm`` [b, 4] (a uniform random op
-    order: the argsort of uniforms) and ``sigma`` [b] (the blur's)."""
+    order: the argsort of uniforms) and ``sigma`` [b] (the blur's). A
+    data-parallel rank (``rank`` of ``world``, b its rows) draws the global
+    batch's b * world and keeps its rows (``parallel.mesh.rows_of``)."""
     dev = generator.device
+    b = b * world
     noise = torch.randn((b, h, w, 3), generator=generator, device=dev) * noise_std
     u = torch.rand((b, 4), generator=generator, device=dev)
     lo = [max(0.0, 1.0 - f) for f in jitter[:3]] + [-jitter[3]]
@@ -71,7 +76,8 @@ def draw_photometric(b: int, h: int, w: int, generator: torch.Generator,
     perm = torch.argsort(torch.rand((b, 4), generator=generator, device=dev), dim=1)
     s = torch.rand((b,), generator=generator, device=dev)
     sigma = sigma_range[0] + s * (sigma_range[1] - sigma_range[0])
-    return {"noise": noise, "factors": factors, "perm": perm, "sigma": sigma}
+    draws = {"noise": noise, "factors": factors, "perm": perm, "sigma": sigma}
+    return {k: rows_of(v, rank, world) for k, v in draws.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -264,14 +270,16 @@ def photometric(img: torch.Tensor, draws: Dict[str, torch.Tensor]) -> torch.Tens
 
 def augment_batch(images_u8: torch.Tensor, dots: torch.Tensor, n_dots: torch.Tensor,
                   apply_photo: torch.Tensor, generator: torch.Generator,
-                  density_sigma: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+                  density_sigma: float = 1.0, rank: int = 0,
+                  world: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """The batched device augmentation: images_u8 [b, 384, 384, 3] uint8
     host-geometry crops, dots [b, K, 2] (x, y) in crop coordinates,
     n_dots [b], apply_photo [b] (0 for mosaic samples). Draws from
-    ``generator``; returns (images float32, gt_density float32
+    ``generator`` (a data-parallel rank: ``draw_photometric``'s ``rank`` and
+    ``world``); returns (images float32, gt_density float32
     [b, 384, 384])."""
     bsz, h, w = images_u8.shape[:3]
     img = images_u8.float() / 255.0
-    draws = draw_photometric(bsz, h, w, generator)
+    draws = draw_photometric(bsz, h, w, generator, rank=rank, world=world)
     img = torch.where(_per_sample(apply_photo, 4) > 0, photometric(img, draws), img)
     return img, density_from_dots(dots, n_dots, h, w, sigma=density_sigma)

@@ -1,7 +1,9 @@
 """Boundaries of the port package countr_tpu_torch: it imports neither
-JAX nor the JAX package, its entry points (the CLIs' --device too)
-default to the CUDA card and raise without one, its stitch geometry equals the JAX package's, and no
-file of it calls a library attention kernel or torch.compile."""
+JAX nor the JAX package (its data-parallel modules ``parallel.dist`` and
+``parallel.mesh`` included), its entry points (the CLIs' --device and
+their ``--n_devices`` ranks too) default to the CUDA card and raise
+without one, its stitch geometry equals the JAX package's, and no file of
+it calls a library attention kernel or torch.compile."""
 
 import os
 import pkgutil
@@ -29,7 +31,7 @@ def test_imports_no_jax():
     mods = _modules()
     for m in ("engine.inference", "native", "data.imcache", "data.loader", "data.fsc147",
               "ops.augment", "cli.finetune", "engine.train_store", "engine.carpk_store",
-              "cli.finetune_carpk", "cli.pretrain"):
+              "cli.finetune_carpk", "cli.pretrain", "parallel.dist", "parallel.mesh"):
         assert f"countr_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -72,6 +74,14 @@ def test_entry_points_default_to_cuda():
     assert args.device == "cuda"
     with pytest.raises(RuntimeError, match="CUDA"):
         pretrain.build_mae_model(args)
+    # data-parallel ranks default to the cards too: none visible, none started
+    from countr_tpu_torch.parallel.mesh import get_mesh
+
+    for cli in (finetune, finetune_carpk, pretrain):
+        with pytest.raises(ValueError, match="0 CUDA device"):
+            cli.main(cli.get_args(["--n_devices", "2", "--batch_size", "2"]))
+    with pytest.raises(ValueError, match="0 CUDA device"):
+        get_mesh(2)
 
 
 def test_engine_rejects_bad_input():

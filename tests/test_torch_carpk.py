@@ -58,7 +58,7 @@ def tree(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def pth(tmp_path_factory):
-    _, params = jax_model(seed=11, **TINY384)
+    _, params = jax_model(seed=11, jit=True, **TINY384)
     path = str(tmp_path_factory.mktemp("w") / "tiny384.pth")
     jckpt.save_torch_checkpoint(path, jckpt.export_countr_state_dict(params))
     return path

@@ -55,7 +55,7 @@ def tiny_preset():
 def pth(tmp_path_factory):
     """The JAX package's params of tiny384 (randomised beyond the init) as
     a reference-format .pth, written by the JAX package."""
-    _, params = jax_model(seed=7, **TINY384)
+    _, params = jax_model(seed=7, jit=True, **TINY384)
     path = str(tmp_path_factory.mktemp("weights") / "tiny384.pth")
     jckpt.save_torch_checkpoint(path, jckpt.export_countr_state_dict(params))
     return path
@@ -149,8 +149,8 @@ def test_cli_test_gate(tree, pth, tmp_path, capsys):
                        engine=engine)
     assert np.isfinite(stats["MAE"])
     assert "acceptance gate: PASS" in capsys.readouterr().out
-    with pytest.raises(ValueError, match="ROADMAP item 8"):
-        tcommon.build_engine(ttest.get_args(argv + ["--n_devices", "2"]), normalization=True)
+    with pytest.raises(ValueError, match="not a multiple of the 3 devices"):
+        tcommon.build_engine(ttest.get_args(argv + ["--n_devices", "3"]), normalization=True)
 
 
 def _jax_engine(pth):

@@ -9,8 +9,8 @@ The host path and ``--resident_data``, 2 epochs of ``--limit_steps 2`` at
 batch 1: the per-epoch train/loss and train/MAE within rel 1e-5 (the
 samples, their order and the exemplar draws are equal bit for bit, and no
 random draw of the step differs: CARPK's loss is unmasked, loss_mask_p 1.0
-in the program itself), and ``ckpt_last`` written. ``--n_devices 2``
-raises, naming its ROADMAP item.
+in the program itself), and ``ckpt_last`` written. ``--n_devices 2`` at
+the default batch 1 raises: the global batch must split over the ranks.
 """
 
 import argparse
@@ -81,6 +81,6 @@ def test_cli_matches_jax(carpk_dir, pth, tmp_path, resident):  # noqa: F811
 
 
 def test_unported_devices_raise(carpk_dir, pth, tmp_path):  # noqa: F811
-    with pytest.raises(ValueError, match="item 8"):
+    with pytest.raises(ValueError, match="divisible"):
         tcli.main(tcli.get_args(port_argv(carpk_dir, pth, str(tmp_path / "o"),
                                           "--n_devices", "2")))

@@ -27,7 +27,9 @@ CLIs' TrainConfig; the program keeps the reference's 0.8.
   on the same weights within rel 1e-5; ``--do_resume`` (also with
   ``--resident_pipeline``) equals the uninterrupted run bit for bit, and
   ``--resident_pipeline`` the serial run.
-- ``--n_devices 2`` raises, naming its ROADMAP item.
+- ``--n_devices`` refusals: a batch of 2 over 3 ranks, and 2 ranks on
+  CUDA with fewer cards visible (tests/test_torch_cli_parallel.py runs
+  the ranks).
 """
 
 import argparse
@@ -66,7 +68,7 @@ def tiny_preset():
 
 @pytest.fixture(scope="module")
 def pth(tmp_path_factory):
-    _, params = jax_model(seed=7, **TINY384)
+    _, params = jax_model(seed=7, jit=True, **TINY384)
     path = str(tmp_path_factory.mktemp("weights") / "tiny384.pth")
     jckpt.save_torch_checkpoint(path, jckpt.export_countr_state_dict(params))
     return path
@@ -197,7 +199,8 @@ def test_init_from_mae_gives_jax_encoder(fsc_dir, pth, tmp_path, source):  # noq
                                   "blocks.0.attn.qkv.weight"])
 
 
-@pytest.mark.parametrize("flag,item", [(("--n_devices", "2"), "item 8")])
+@pytest.mark.parametrize("flag,item", [(("--n_devices", "3"), "divisible"),
+                                       (("--device", "cuda", "--n_devices", "2"), "CUDA device")])
 def test_unported_flags_raise(fsc_dir, pth, tmp_path, flag, item):  # noqa: F811
     with pytest.raises(ValueError, match=item):
         tft.main(tft.get_args(port_argv(fsc_dir, pth, str(tmp_path / "o"), *flag)))

@@ -22,7 +22,8 @@ generator.
   image and noise.
 - ``load_mae_weights`` ignores a released checkpoint's cls token and
   position embedding and refuses a checkpoint without a learned tensor.
-- ``--n_devices 2`` raises, naming its ROADMAP item.
+- ``--n_devices 3`` at batch 2 raises: the global batch must split over
+  the ranks (tests/test_torch_cli_parallel.py runs the ranks).
 """
 
 import argparse
@@ -231,6 +232,6 @@ def test_load_mae_weights_takes_the_learned_tensors(pth):
 
 
 def test_n_devices_refused(fsc_dir, pth, tmp_path):  # noqa: F811
-    with pytest.raises(ValueError, match="ROADMAP item 8"):
+    with pytest.raises(ValueError, match="divisible"):
         tpt.Pretrain(tpt.get_args(port_argv(fsc_dir, pth, str(tmp_path / "o"),
-                                            "--n_devices", "2")))
+                                            "--n_devices", "3")))

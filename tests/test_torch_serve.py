@@ -37,7 +37,7 @@ def _start(mod, engine):
 
 @pytest.fixture(scope="module")
 def servers():
-    model, params = jax_model(seed=3, **SMALL)
+    model, params = jax_model(seed=3, jit=True, **SMALL)
     jsrv, jurl = _start(jserve, JaxEngine(model, params, batch_windows=4))
     tengine = TorchEngine(torch_model(params, **SMALL), batch_windows=4, device="cpu")
     tsrv, turl = _start(tserve, tengine)

@@ -20,7 +20,7 @@ SMALL = dict(depth=1, decoder_depth=1)
 
 
 def engines():
-    model, params = jax_model(seed=4, **SMALL)
+    model, params = jax_model(seed=4, jit=True, **SMALL)
     jax_engine = JaxEngine(model, params, batch_windows=4)
     torch_engine = TorchEngine(torch_model(params, **SMALL), batch_windows=4, device="cpu")
     return jax_engine, torch_engine

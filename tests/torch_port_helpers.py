@@ -1,6 +1,12 @@
 """Shared helpers for the port's parity tests (tests/test_torch_*.py):
 a tiny JAX CounTR with its params, and the same weights in the port's
-model through the weight bridge."""
+model through the weight bridge.
+
+Importing this module caps torch's intra-op threads at one: the suite
+runs under several xdist workers, every worker imports every test file,
+and each worker's torch would otherwise start a thread per core, so that
+six workers on eight cores run ~48 spinning threads (the port's heaviest
+files ran 2-10x slower so)."""
 
 import jax
 import jax.numpy as jnp
@@ -12,6 +18,8 @@ from countr_tpu.models.countr import CounTR as JaxCounTR
 from countr_tpu_torch.config import CounTRConfig as TorchConfig
 from countr_tpu_torch.engine.checkpoint import load_weights, state_dict_from_flax
 from countr_tpu_torch.models.countr import CounTR as TorchCounTR
+
+torch.set_num_threads(1)
 
 # Full 384 window geometry, skinny widths (CLAUDE.md: tiny test configs).
 TINY = dict(
