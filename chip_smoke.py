@@ -154,6 +154,23 @@ Phases, one line each on stdout:
      eager ones (graphed=False; the same losses to the bit); a run stopped
      after epoch 0 and resumed (--do_resume) against the uninterrupted run
      (the same stats and weights, to the bit);
+  17b. surfaces: on the same tree, the finetune CLI in this process for 2
+     epochs of 12 steps with --log_every 4 --panel_every 1, TensorBoard
+     under its output directory and common.make_wandb swapped for a
+     recording sink, graphs captured first (the panel forward's among
+     them): B1 44, B3 18, B4 6 per train replay, B1 44, B3 18 per eval and
+     per panel replay, no eager launch, no capture during the epochs; the
+     event files read back and the W&B calls against the tags and steps
+     the JAX CLI writes; the panel replay's densities against an eager
+     forward of the same samples, to the bit; the panel and eval replays'
+     ms; train epochs with the step scalars on against off, and one
+     epoch's panels alone (and one TensorBoard image); --debug_nans (no
+     graph, 2 eager steps and their launches, a batch with one NaN pixel
+     raising FloatingPointError naming its step, then the CLI without the
+     flag capturing and replaying its graphs); countr_tpu_torch.entry.entry()
+     against the model's own eager forward, to the bit (B1 26 and B2 18).
+     cli.aggregate runs inside the cli_test phase, over its run
+     directories: each row against the mean of its run's log.txt;
   18. resident_cli: the same CLI with --resident_data on the same tree
      (the train and validation splits resident on the card,
      engine/train_store.py), in this process, graphs captured first: B1 44,
@@ -1279,6 +1296,7 @@ def cli_test_phase(torch):
             if dtype != "bf16":
                 del engine, runner, calls
                 torch.cuda.empty_cache()
+        aggregate_check(d)
     say("head", windows=WINDOWS, ms=heads, subpixel_bf16_ms=heads["bf16"],
         fp32_ms=heads["mixed_fast"], mixed_bal_ms=heads["mixed_bal"])
     return out["launches"], out["engine"]
@@ -2275,6 +2293,294 @@ def check_runners(what: str, runners: dict, expect: dict, graphs_before: int, gr
     return replays, per, eager
 
 
+SURF_LOG_EVERY = 4  # the surfaces phase's --log_every
+SURF_STATS = ("train/loss", "train/MAE", "train/RMSE", "val/MAE", "val/RMSE", "val/NAE", "lr",
+              "epoch_time_s")  # an epoch's record (countr_tpu/cli/finetune.py:446-456)
+ENTRY_LAUNCHES = {"B1": 26, "B2": 18, "B3": 0, "B4": 0, "B5": 0, "B6": 0}
+
+
+class RecordingWandb:
+    """A W&B sink that records its calls (the JAX package's test sink,
+    tests/test_cli_train.py:80-97)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def log(self, record, step=None):
+        self.calls.append(("log", step, sorted(record)))
+
+    def image(self, tag, img, step=None):
+        self.calls.append(("image", step, tag, tuple(np.shape(img))))
+
+    def log_artifact(self, path, name, kind="model"):
+        self.calls.append(("artifact", name))
+
+
+def jax_cli_sinks(names, improved, epochs: int = 2, steps: int = FT_STEPS,
+                  every: int = SURF_LOG_EVERY):
+    """The TensorBoard (tag, step) pairs and the W&B calls the JAX finetune
+    CLI makes (countr_tpu/cli/finetune.py:354-364, :464-479, :515-520) in
+    ``epochs`` epochs of ``steps`` steps at --log_every ``every`` and
+    --panel_every 1, the panels of the samples ``names``, the minMAE
+    artifact at the epochs ``improved``."""
+    tb, wb = [], []
+    for e in range(epochs):
+        for s in range(every, steps + 1, every):
+            tb += [("train/loss_step", e * steps + s), ("train/lr_step", e * steps + s)]
+            wb.append(("log", e * steps + s, ["train/loss_step", "train/lr_step"]))
+        end = (e + 1) * steps
+        tb += [(k, e) for k in SURF_STATS]
+        wb.append(("log", end, sorted(("epoch", *SURF_STATS))))
+        for n in names:
+            tb.append((f"val/density_{n}", e))
+            wb.append(("image", end, f"val/density_{n}", (384, 3 * 384, 3)))
+        if e in improved:
+            wb.append(("artifact", "finetuning_minMAE"))
+    return tb, wb
+
+
+def surfaces_logging(torch, d: str):
+    """The finetune CLI in this process with TensorBoard (under its output
+    directory), a recording W&B sink (``common.make_wandb`` swapped) and
+    the panels every epoch, graphs captured first: launches per train,
+    eval and panel replay, no eager launch, no capture during the epochs;
+    the event files read back and the W&B calls against the JAX CLI's
+    (tags and steps); the panel replay's densities against an eager
+    forward of the same samples (to the bit); the panel and eval replays'
+    ms; train epochs with the step scalars on against off, in turns, and
+    the panels of one epoch alone. Returns the run's graph launches."""
+    import os
+
+    from countr_tpu_torch.bench import events_ms
+    from countr_tpu_torch.cli import common
+    from countr_tpu_torch.cli import finetune as cli
+    from countr_tpu_torch.data.loader import device_prefetch
+    from countr_tpu_torch.engine.train import PANEL_SHOT
+    from countr_tpu_torch.utils.metrics import read_tb_events
+
+    out = os.path.join(d, "out_surfaces")
+    sink, make = RecordingWandb(), common.make_wandb
+    common.make_wandb = lambda *a, **k: sink
+    try:
+        t0 = time.perf_counter()
+        ft = cli.Finetune(finetune_args(d, out, "--panel_every", "1", "--log_every",
+                                        str(SURF_LOG_EVERY)))
+        build_s = time.perf_counter() - t0
+    finally:
+        common.make_wandb = make
+    graphs = ft.graphs()
+    runners = {"train": ft.train_step.runner, "eval": ft.eval_step.runner,
+               "panel": ft.panels.runner}
+    reset_counts()
+    for r in runners.values():
+        r.zero_counts()
+    t0 = time.perf_counter()
+    stats = ft.run()
+    run_s = time.perf_counter() - t0
+    val_batches = -(-FT_VAL // TRAIN_BATCH)
+    replays, per, eager = check_runners(
+        "surfaces (finetune CLI, panels every epoch)", runners,
+        {"train": (2 * FT_STEPS, FT_TRAIN_LAUNCHES), "eval": (2 * val_batches, FT_EVAL_LAUNCHES),
+         "panel": (2, FT_EVAL_LAUNCHES)}, graphs, ft.graphs())
+    launches = {k: sum(r.launched[k] for r in runners.values()) for k in FT_TRAIN_LAUNCHES}
+
+    events, wandb_calls = read_tb_events(os.path.join(out, "tb")), list(sink.calls)
+    names = [ft.val_ds[i]["name"] for i in range(ft.n_panels)]
+    improved = [0] + ([1] if stats[1]["val/MAE"] < stats[0]["val/MAE"] else [])
+    want_tb, want_wb = jax_cli_sinks(names, improved)
+    images = [v for _, _, v in events if not isinstance(v, float)]
+    scalars = {(t, s): v for t, s, v in events if isinstance(v, float)}
+    stat_diff = max(rel_diff(scalars[(k, e)], r[k]) for e, r in enumerate(stats)
+                    for k in SURF_STATS if k != "epoch_time_s")
+    if [(t, s) for t, s, _ in events] != want_tb or sink.calls != want_wb \
+            or any(i.shape != (384, 3 * 384, 3) for i in images) or stat_diff > 1e-6 \
+            or len(images) != 2 * ft.n_panels:
+        raise AssertionError(f"surfaces: TensorBoard {[(t, s) for t, s, _ in events]} against "
+                             f"{want_tb}; W&B {sink.calls} against {want_wb}; stat diff "
+                             f"{stat_diff}")
+
+    samples, dens = ft.panel_densities()
+    batch = ft.panel_inputs()[1]
+    with torch.inference_mode():
+        eager_dens = ft.model(batch["image"], batch["boxes"], PANEL_SHOT).float().cpu()
+    if not torch.equal(torch.from_numpy(dens), eager_dens):
+        raise AssertionError("surfaces: the panel replay's densities differ from the eager "
+                             f"forward's (max|d| {max_abs(torch.from_numpy(dens), eager_dens)})")
+    panel_ms = events_ms(lambda: ft.panels(batch, PANEL_SHOT), iters=8)
+    val = next(device_prefetch(ft._val_batches(), ft.device))
+    eval_ms = events_ms(lambda: ft.eval_step(val, PANEL_SHOT), iters=8)
+
+    import functools
+    import random
+
+    def timed(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # train epochs with the step scalars on and off, in turns; then the
+    # panels of one epoch alone (replay, triptychs, TensorBoard's PNGs)
+    scalars_on, scalars_off = [], []
+    for epoch, every in ((2, SURF_LOG_EVERY), (3, 0), (4, 0), (5, SURF_LOG_EVERY)):
+        ft.args.log_every = every
+        rng = random.Random(epoch)
+        (scalars_on if every else scalars_off).append(
+            timed(functools.partial(ft.train_epoch, epoch, rng)))
+    panels_s = [timed(lambda: ft.log_val_panels(9, 0)) for _ in range(2)]
+    panel = cli.val_panel(samples[0], dens[0])
+    tb_image_ms = min(timed(lambda: ft.tb.image("timing/panel", panel, 9)) for _ in range(3)) * 1e3
+    n_images = FT_STEPS * TRAIN_BATCH
+    panel_epoch = min(scalars_on) + min(panels_s)
+    say("surfaces", part="finetune_logging", build_s=build_s, capture_s=ft.capture_s,
+        graphs=graphs, run_s=run_s, replays=replays, launches_per_replay=per,
+        eager_launches=eager, graphs_after=ft.graphs(), tb_events=len(events),
+        tb_images=len(images), wandb_calls=len(wandb_calls),
+        wandb_artifacts=sum(c[0] == "artifact" for c in wandb_calls),
+        tensorboard_imported_tensorflow="tensorflow" in sys.modules,
+        tb_and_wandb_match_jax_cli=True, tb_stat_max_rel_diff=stat_diff,
+        panel_samples=names, panels_equal_eager=True, panel_batch=ft.n_panels,
+        panel_replay_ms=panel_ms, eval_replay_ms=eval_ms, eval_batch=TRAIN_BATCH,
+        train_epoch_s_scalars_on=scalars_on, train_epoch_s_scalars_off=scalars_off,
+        loader_fed_images_per_s_scalars_on=[n_images / x for x in scalars_on],
+        loader_fed_images_per_s_scalars_off=[n_images / x for x in scalars_off],
+        panels_s=panels_s, tb_image_ms=tb_image_ms,
+        loader_fed_images_per_s_panel_epoch=n_images / panel_epoch,
+        panel_epoch_note="the train epoch with the scalars on, and its panels")
+    ft.close()
+    del ft
+    torch.cuda.empty_cache()
+    return launches
+
+
+def surfaces_debug_nans(torch, d: str):
+    """--debug_nans on the finetune CLI: no graph captured, 2 eager steps
+    (their launches), a batch with one NaN pixel raising
+    FloatingPointError naming its step; then the same CLI without the flag
+    captures its graphs again and replays them. Returns the eager
+    launches."""
+    import random
+
+    from countr_tpu_torch.cli import finetune as cli
+    from countr_tpu_torch.data import fsc147
+
+    ft = cli.Finetune(finetune_args(d, "", "--debug_nans", "--limit_steps", "2"))
+    if ft.graphs() != 0:
+        raise AssertionError(f"--debug_nans captured {ft.graphs()} graphs")
+    reset_counts()
+    t0 = time.perf_counter()
+    tr = ft.train_epoch(0, random.Random(f"{ft.args.seed}:0"))
+    torch.cuda.synchronize()
+    steps_s = time.perf_counter() - t0
+    eager = launch_counts()
+    if tr["steps"] != 2 or eager != {k: 2 * v for k, v in FT_TRAIN_LAUNCHES.items()} \
+            or not np.isfinite(tr["loss"]):
+        raise AssertionError(f"--debug_nans: {tr}, eager launches {eager}")
+
+    get = fsc147.TrainDataset.__getitem__
+
+    def nan_pixel(self, i):
+        s = dict(get(self, i))
+        s["image"] = np.array(s["image"], np.float32)
+        s["image"][0, 0, 0] = np.nan
+        return s
+
+    fsc147.TrainDataset.__getitem__ = nan_pixel
+    try:
+        ft.train_epoch(1, random.Random(f"{ft.args.seed}:1"))
+    except FloatingPointError as e:
+        raised = str(e)
+    else:
+        raised = None
+    finally:
+        fsc147.TrainDataset.__getitem__ = get
+    ft.close()
+    del ft
+    if raised is None or "epoch 1 step 1" not in raised:
+        raise AssertionError(f"--debug_nans on a NaN batch raised {raised!r}")
+
+    again = cli.Finetune(finetune_args(d, "", "--limit_steps", "2"))
+    graphs = again.graphs()
+    runners = {"train": again.train_step.runner}
+    reset_counts()
+    again.train_step.runner.zero_counts()
+    again.train_epoch(0, random.Random(f"{again.args.seed}:0"))
+    check_runners("after --debug_nans", runners, {"train": (2, FT_TRAIN_LAUNCHES)}, graphs,
+                  again.graphs())
+    again.close()
+    del again
+    torch.cuda.empty_cache()
+    say("surfaces", part="debug_nans", graphs=0, eager_steps=2, eager_steps_s=steps_s,
+        eager_launches=eager, nan_batch_raised=raised[:300], graphs_without_flag=graphs)
+    return eager
+
+
+def surfaces_entry(torch):
+    """countr_tpu_torch.entry.entry() on the card: its forward (eager)
+    against the model's own eager forward, to the bit, with its launches
+    and ms. Returns the launches of one forward."""
+    from countr_tpu_torch.bench import events_ms
+    from countr_tpu_torch.entry import ENTRY_SHOT, entry
+
+    fn, args = entry()
+    fn(*args)
+    reset_counts()
+    out = fn(*args)
+    launches = launch_counts()
+    with torch.inference_mode():
+        want = fn.model(*args, ENTRY_SHOT)
+    if launches != ENTRY_LAUNCHES or not torch.equal(out, want) \
+            or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"entry(): launches {launches}, equal to the model's forward "
+                             f"{torch.equal(out, want)}")
+    ms = events_ms(lambda: fn(*args), iters=10)
+    say("surfaces", part="entry", shape=list(out.shape), launches=launches,
+        equals_model_forward=True, ms=ms)
+    del fn, args, out, want
+    torch.cuda.empty_cache()
+    return launches
+
+
+def aggregate_check(d: str) -> None:
+    """countr_tpu_torch.cli.aggregate over the run directories in ``d``:
+    each row against the plain mean of its run's log.txt."""
+    import os
+
+    from countr_tpu_torch.cli import aggregate
+
+    rows = aggregate.log_test_results(d)
+    worst = 0.0
+    for row in rows:
+        with open(os.path.join(d, row["name"], "log.txt")) as f:
+            recs = [json.loads(line) for line in f if line.strip()]
+        keys = {k for r in recs for k, v in r.items()
+                if isinstance(v, (int, float)) and not isinstance(v, bool)}
+        want = {k: float(np.mean([r[k] for r in recs if k in r])) for k in keys}
+        if set(row) - {"name"} != keys:
+            raise AssertionError(f"aggregate: {row['name']} columns {sorted(row)}, log {keys}")
+        worst = max([worst] + [rel_diff(row[k], want[k]) for k in keys])
+    if len(rows) < 4 or worst > 1e-12:
+        raise AssertionError(f"aggregate: {len(rows)} runs, max rel diff {worst}")
+    plot = aggregate.plot_test_results(d)
+    say("surfaces", part="aggregate", runs=[r["name"] for r in rows], max_rel_diff=worst,
+        plot=os.path.basename(plot) if plot else None,
+        logs_csv_bytes=os.path.getsize(os.path.join(d, "logs.csv")))
+
+
+def surfaces_phase(torch, d: str) -> dict:
+    """The surfaces of the last slice: the finetune CLI's TensorBoard,
+    W&B and panels, --debug_nans and entry() (aggregate runs inside
+    cli_test_phase, on its run directories). Returns their launches by
+    path."""
+    t0 = time.perf_counter()
+    out = {"finetune_cli_panels": surfaces_logging(torch, d),
+           "debug_nans": surfaces_debug_nans(torch, d),
+           "entry": surfaces_entry(torch)}
+    say("surfaces_done", seconds=time.perf_counter() - t0)
+    return out
+
+
 def resident_inprocess(torch, d: str, pipelined: bool):
     """The CLI's --resident_data run (--resident_pipeline with
     ``pipelined``) in this process, its graphs captured first and the
@@ -3059,6 +3365,7 @@ def main() -> int:
     with smoke_dir("out_smoke_ft_") as d:
         synthetic_fsc(d)
         by_path["finetune_cli"] = finetune_cli_phase(torch, d)
+        by_path.update(surfaces_phase(torch, d))
         by_path["resident_cli"] = resident_cli_phase(torch, d)
         by_path.update(pretrain_cli_phase(torch, d))
     store_pool_phase(torch, dev)

@@ -19,12 +19,31 @@ kernels here:
   half-block, replaces ``pallas_block.py::_cross_block_kernel`` (B6).
 
 Entry points (``models.build_countr``, ``models.build_mae``,
-``engine.inference.CountingEngine``, and the CLIs under ``cli/``: test,
-serve, demo, test_carpk, finetune) run on the card unless the caller passes
-``device="cpu"`` (``--device cpu``).
+``engine.inference.CountingEngine``, ``entry.entry``, and the CLIs under
+``cli/``: test, serve, demo, test_carpk, finetune, finetune_carpk,
+pretrain) run on the card unless the caller passes ``device="cpu"``
+(``--device cpu``); ``cli/aggregate`` is host code. ``CountingEngine``,
+``count_image``, ``build_countr`` and ``build_mae`` are also names of the
+package, resolved on first use.
 """
 
 import torch
+
+_LAZY = {
+    "CountingEngine": ("countr_tpu_torch.engine.inference", "CountingEngine"),
+    "count_image": ("countr_tpu_torch.engine.inference", "count_image"),
+    "build_countr": ("countr_tpu_torch.models", "build_countr"),
+    "build_mae": ("countr_tpu_torch.models", "build_mae"),
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        mod, sym = _LAZY[name]
+        return getattr(importlib.import_module(mod), sym)
+    raise AttributeError(f"module 'countr_tpu_torch' has no attribute {name!r}")
 
 
 def resolve_device(device) -> torch.device:

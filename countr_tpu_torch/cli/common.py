@@ -4,9 +4,12 @@ weight loading.
 
 Every entry point takes ``--device`` (default ``cuda``): without a card
 the build raises (``countr_tpu_torch.resolve_device``), and ``cpu`` runs
-on the CPU on request. The JAX package's flags for JAX machinery
-(``--debug_nans``, the compilation cache) and for W&B are not carried
-(ROADMAP item 9).
+on the CPU on request. ``--wandb_*`` name the optional W&B run
+(``make_wandb``). ``--debug_nans`` is the port's ``jax_debug_nans``: no
+CUDA graph, the training steps under ``torch.autograd.detect_anomaly``,
+and the first step loss (training) or window batch density (counting)
+that holds a NaN raises ``FloatingPointError`` naming it
+(``nan_watched``).
 
 ``--n_devices``: the training CLIs run one rank per device
 (``launch_ranks``, ``init_ranks``; ``parallel/dist.py``), the counting
@@ -18,7 +21,9 @@ from __future__ import annotations
 
 import argparse
 import os
-from typing import Optional
+from typing import Callable, Dict, Iterator, Optional
+
+import torch
 
 from countr_tpu_torch.config import DTYPE_MODES, fast_mode_overrides
 
@@ -56,6 +61,57 @@ def add_model_args(p: argparse.ArgumentParser, default_model: str = "mae_vit_bas
     p.add_argument("--device", default="cuda", type=str,
                    help="torch device; cuda raises when no card is present, "
                         "cpu runs on the CPU")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="find NaNs: no CUDA graph, the training steps under "
+                        "torch.autograd.detect_anomaly, and the first step loss or window "
+                        "batch density holding a NaN raises FloatingPointError naming it")
+    p.add_argument("--wandb_project", default="", type=str,
+                   help="log to this W&B project when the client is available")
+    p.add_argument("--wandb_title", default="", type=str,
+                   help="W&B run name (reference --title)")
+    p.add_argument("--wandb_team", default="", type=str,
+                   help="W&B entity/team (reference --team)")
+    p.add_argument("--wandb_id", default="", type=str,
+                   help="W&B run id to resume (reference --wandb_id)")
+
+
+def make_wandb(args, enabled: bool = True):
+    """Rank 0's W&B writer from the reference's flag set (a no-op sink
+    without ``--wandb_project`` or without the client)."""
+    from countr_tpu_torch.utils.metrics import WandbWriter
+
+    return WandbWriter(
+        (getattr(args, "wandb_project", "") or None) if enabled else None,
+        run_name=getattr(args, "wandb_title", "") or None,
+        config=vars(args),
+        team=getattr(args, "wandb_team", "") or None,
+        run_id=getattr(args, "wandb_id", "") or None,
+    )
+
+
+def nan_watched(metrics: Iterator[Dict], where: Callable[[int], str],
+                key: str = "loss") -> Iterator[Dict]:
+    """``--debug_nans`` on a training CLI's stream of step metrics (each
+    step runs when its metrics are drawn): every step drawn under
+    ``torch.autograd.detect_anomaly``; the first step whose backward makes
+    a NaN, or whose ``key`` holds one, raises ``FloatingPointError``
+    naming ``where(i)`` (i counts the steps from 1), as ``jax_debug_nans``
+    raises it."""
+    i = 0
+    while True:
+        i += 1
+        try:
+            with torch.autograd.detect_anomaly():
+                m = next(metrics)
+        except StopIteration:
+            return
+        except RuntimeError as e:
+            if "nan" not in str(e).lower():
+                raise
+            raise FloatingPointError(f"--debug_nans: NaN in {where(i)}: {e}") from e
+        if not bool(torch.isfinite(m[key]).all()):
+            raise FloatingPointError(f"--debug_nans: NaN in the {key} of {where(i)}")
+        yield m
 
 
 def load_meta(args):
@@ -187,6 +243,7 @@ def build_engine(args, normalization: bool):
         narrow_policy=getattr(args, "narrow_policy", "pad"),
         device=args.device,
         devices=devices,
+        debug_nans=getattr(args, "debug_nans", False),
     )
 
 

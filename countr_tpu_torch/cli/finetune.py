@@ -21,8 +21,19 @@ Data parallel with ``--n_devices N`` (or under ``torchrun
 cpu``); ``--batch_size`` stays the global batch, each rank loads its slice,
 and the step averages the gradients and metrics across the ranks inside
 its graph (``engine/train.py TrainState``). Rank 0 alone prints, logs and
-writes checkpoints. TensorBoard, the validation panels and W&B are ROADMAP
-item 9.
+writes checkpoints.
+
+Logging, as the JAX CLI logs: ``log.txt`` (one JSON line an epoch);
+TensorBoard under ``<output_dir>/tb`` and the optional W&B run
+(``--wandb_project``): ``train/loss_step`` and ``train/lr_step`` every
+``--log_every`` steps at the global step, each epoch's stats (TensorBoard
+at the epoch, W&B at the global step that ends it), and every
+``--panel_every`` epochs, in a single process, the ``val/density_<name>``
+panels of the first four validation samples (GT overlay | prediction |
+prediction overlay), whose forward is replayed on the card from a CUDA
+graph captured with the others. W&B also gets the minimum-MAE checkpoint
+as the ``finetuning_minMAE`` artifact. ``--debug_nans`` runs eager steps
+under anomaly detection (``common.nan_watched``).
 
 Usage:
   python -m countr_tpu_torch.cli.finetune --data_path ./data/FSC147 \\
@@ -46,7 +57,7 @@ import torch
 from countr_tpu_torch.cli import common
 from countr_tpu_torch.config import TrainConfig
 from countr_tpu_torch.parallel.dist import rank0_print
-from countr_tpu_torch.utils.metrics import JsonlLogger
+from countr_tpu_torch.utils.metrics import JsonlLogger, TBWriter
 
 
 def get_args(argv=None):
@@ -86,11 +97,17 @@ def get_args(argv=None):
     p.add_argument("--init_from_mae", default="", type=str,
                    help="MAE pretrain checkpoint to initialise the encoder from: a reference "
                         ".pth, or a directory of the port's checkpoints")
+    p.add_argument("--init_from_mae_model", default="mae_vit_base_patch16", type=str,
+                   help="MAE preset of a checkpoint directory given to --init_from_mae "
+                        "(its encoder width and depth must match)")
     p.add_argument("--limit_steps", default=0, type=int, help="cap steps/epoch (smoke tests)")
     p.add_argument("--n_devices", default=0, type=int, help=N_DEVICES_HELP)
+    p.add_argument("--panel_every", default=10, type=int,
+                   help="epochs between validation density panels in TensorBoard and W&B "
+                        "(0 = off; reference: FSC_finetune_cross.py:352-405)")
     p.add_argument("--log_every", default=50, type=int,
-                   help="steps between printed train loss / lr lines (0 = per epoch only; "
-                        "reference: FSC_finetune_cross.py:320-326)")
+                   help="steps between train loss / lr scalars in TensorBoard and W&B (0 = per "
+                        "epoch only; reference: FSC_finetune_cross.py:320-326)")
     return p.parse_args(argv)
 
 
@@ -144,17 +161,52 @@ class _Positions:
         return self.dataset[int(self.index[i])]
 
 
-def init_encoder(model, path: str) -> None:
+def init_encoder(model, path: str, mae_model: str = "mae_vit_base_patch16") -> None:
     """Load the ViT encoder (patch_embed, blocks, norm) of an MAE
     checkpoint into ``model``: a reference ``.pth`` (the layout of
     ``mae_state_dict_from_flax``), or a directory of the port's
-    checkpoints (the latest step). The reference's non-strict load of the
-    pretrain checkpoint (util/misc.py:363-376)."""
+    checkpoints (the latest step) of the MAE preset ``mae_model``, whose
+    encoder width and depth the checkpoint must have (as the JAX CLI
+    restores into that preset's template). The reference's non-strict
+    load of the pretrain checkpoint (util/misc.py:363-376)."""
     from countr_tpu_torch.engine import checkpoint as ckpt
     from countr_tpu_torch.engine.train import transfer_encoder
 
-    sd = ckpt.load_torch_checkpoint(path) if path.endswith(".pth") else ckpt.restore_params(path)
+    if path.endswith(".pth"):
+        sd = ckpt.load_torch_checkpoint(path)
+    else:
+        sd = ckpt.restore_params(path)
+        check_mae_preset(sd, mae_model)
     ckpt.load_weights(model, transfer_encoder(sd, model.state_dict(), depth=model.cfg.depth))
+
+
+def check_mae_preset(state_dict, name: str) -> None:
+    """Raise unless the MAE state dict has preset ``name``'s encoder width
+    and depth."""
+    from countr_tpu_torch.config import MAE_PRESETS
+
+    cfg = MAE_PRESETS[name]
+    width = int(state_dict["patch_embed.proj.weight"].shape[0])
+    depth = len({k.split(".")[1] for k in state_dict if k.startswith("blocks.")})
+    if (width, depth) != (cfg.embed_dim, cfg.depth):
+        raise ValueError(f"--init_from_mae: the checkpoint's encoder is {depth} x {width}; "
+                         f"--init_from_mae_model {name} is {cfg.depth} x {cfg.embed_dim}")
+
+
+def val_panel(sample: Dict, density: np.ndarray) -> np.ndarray:
+    """A validation sample's [H, 3W, 3] triptych: GT overlay | prediction
+    | prediction overlay, the density in the red channel (the JAX
+    ``_log_val_panels``; reference W&B panels: FSC_finetune_cross.py:
+    352-405)."""
+    img = sample["image"]
+    zeros = np.zeros_like(sample["gt_density"])
+    gt = np.stack([sample["gt_density"], zeros, zeros], -1)
+    pred = np.stack([density, np.zeros_like(density), np.zeros_like(density)], -1)
+    return np.concatenate([np.clip(img / 2 + gt, 0, 1), np.clip(pred, 0, 1),
+                           np.clip(img / 2 + pred, 0, 1)], axis=1)
+
+
+N_PANELS = 4  # validation samples a panel epoch shows (countr_tpu/cli/finetune.py:524)
 
 
 def _zeros(shape, dtype, device) -> torch.Tensor:
@@ -176,6 +228,8 @@ class Finetune:
         from countr_tpu_torch.engine import train as engine
 
         self.args = args
+        if args.debug_nans:
+            graphed = False
         self.mesh = mesh = common.init_ranks(args)
         self.rank, self.world = (mesh.rank, mesh.world) if mesh else (0, 1)
         self.main = self.rank == 0
@@ -183,10 +237,13 @@ class Finetune:
         self.model = model = common.build_counting_model(args, training=True)
         self.device = next(model.parameters()).device
         if args.init_from_mae:
-            init_encoder(model, args.init_from_mae)
+            init_encoder(model, args.init_from_mae, args.init_from_mae_model)
             rank0_print(f"initialized encoder from {args.init_from_mae}")
         self.outdir = common.ensure_outdir(args) if self.main else (args.output_dir or None)
-        self.jsonl = JsonlLogger(self.outdir if self.main else None)
+        logs = self.outdir if self.main else None
+        self.jsonl = JsonlLogger(logs)
+        self.tb = TBWriter(os.path.join(logs, "tb") if logs else None)
+        self.wandb = common.make_wandb(args, enabled=self.main)
         self.device_aug = args.device_aug and not args.no_aug
         self.resident = args.resident_data and not args.no_aug
         self.pipelined = self.resident and args.resident_pipeline
@@ -250,6 +307,14 @@ class Finetune:
             self.train_steps = (self.train_step,)
             self.eval_step = engine.make_eval_step(model, graphed=graphed, mesh=mesh)
             self.batch_keys = engine.DEVICE_AUG_KEYS if self.device_aug else engine.FINETUNE_KEYS
+        # the panels: a single process only (countr_tpu/cli/finetune.py:472),
+        # and only where a sink takes them
+        self.n_panels = min(N_PANELS, len(self.val_ds))
+        sinks = self.tb.enabled or getattr(self.wandb, "enabled", True)
+        self.panels = (engine.make_panel_forward(model, graphed=graphed)
+                       if args.panel_every and self.world == 1 and self.n_panels and sinks
+                       else None)
+        self._panel_inputs = None
         self.capture_s = self._capture() if hasattr(self.eval_step, "capture") else 0.0
 
         self.start_epoch = common.resume(args, self.outdir, self.state, mesh)
@@ -304,12 +369,17 @@ class Finetune:
             else:
                 self.train_step.capture(batch, shot)
             self.eval_step.capture(val, shot)
+        if self.panels is not None:
+            n = self.n_panels
+            self.panels.capture({"image": _zeros((n, hw, hw, 3), torch.float32, dev),
+                                 "boxes": _zeros((n, 3, 64, 64, 3), torch.float32, dev)},
+                                engine.PANEL_SHOT)
         torch.cuda.synchronize(dev)
         return time.perf_counter() - t0
 
     def graphs(self) -> int:
         """The CUDA graphs captured so far (0 for eager steps)."""
-        return sum(len(f.runner) for f in (*self.train_steps, self.eval_step)
+        return sum(len(f.runner) for f in (*self.train_steps, self.eval_step, self.panels)
                    if hasattr(f, "runner"))
 
     def _val_batches(self) -> Iterator[Dict]:
@@ -368,17 +438,24 @@ class Finetune:
         batches = device_prefetch(self.train_dl.epoch(epoch), self.device, self.batch_keys)
         if args.limit_steps:
             batches = itertools.islice(batches, args.limit_steps)
+        metrics = self.step_metrics(batches, py_rng)
+        if args.debug_nans:
+            metrics = common.nan_watched(metrics, lambda i: f"epoch {epoch} step {i}")
         totals, n_steps = None, 0
-        for m in self.step_metrics(batches, py_rng):
+        for m in metrics:
             totals = m if totals is None else {k: totals[k] + m[k] for k in totals}
             n_steps += 1
             if n_steps % 32 == 0 and not torch.isfinite(totals["loss"]):
                 # the running sum catches a NaN of any step in the window
                 raise SystemExit(f"Loss is not finite at epoch {epoch}")
-            if args.log_every and n_steps % args.log_every == 0:
+            if args.log_every and n_steps % args.log_every == 0 and self.main:
+                # the per-step scalars (reference: FSC_finetune_cross.py:320-326)
                 gstep = epoch * self.steps_per_epoch + n_steps
-                rank0_print(f"[Epoch {epoch} step {n_steps}] loss {float(m['loss']):.4f} "
-                            f"lr {self.state.schedule(gstep):.3e}", flush=True)
+                rec = {"train/loss_step": float(m["loss"]),
+                       "train/lr_step": float(self.state.schedule(gstep))}
+                self.wandb.log(rec, step=gstep)
+                for k, v in rec.items():
+                    self.tb.scalar(k, v, gstep)
         sums = {k: float(v) for k, v in totals.items()} if totals else {}
         return {"loss": sums.get("loss", 0.0), "mae": sums.get("mae", 0.0),
                 "mse": sums.get("mse", 0.0), "steps": n_steps}
@@ -425,8 +502,46 @@ class Finetune:
                     f"{stats['train/MAE']:.2f} val MAE {val_mae:.2f} val RMSE "
                     f"{stats['val/RMSE']:.2f} ({stats['epoch_time_s']:.1f}s)", flush=True)
         self.jsonl.write(stats)
+        # W&B steps are monotonic: the epoch's record shares the global
+        # step axis with the per-step scalars
+        wandb_step = (epoch + 1) * self.steps_per_epoch
+        self.wandb.log(stats, step=wandb_step)
+        for k, v in stats.items():
+            if k != "epoch":
+                self.tb.scalar(k, v, epoch)
+        every = self.args.panel_every
+        if self.panels is not None and every and epoch % every == 0:
+            self.log_val_panels(epoch, wandb_step)
         self._keep(epoch, val_mae)
         return stats
+
+    def panel_inputs(self):
+        """The validation panels' samples (the first ``n_panels``) and their
+        image and exemplar batch on the device, made once."""
+        if self._panel_inputs is None:
+            samples = [self.val_ds[i] for i in range(self.n_panels)]
+            batch = {k: torch.from_numpy(np.stack([s[k] for s in samples])).to(self.device)
+                     for k in ("image", "boxes")}
+            self._panel_inputs = samples, batch
+        return self._panel_inputs
+
+    def panel_densities(self):
+        """The panels' samples and their densities at ``PANEL_SHOT``, from
+        the panel forward (replayed from its graph on the card)."""
+        from countr_tpu_torch.engine.train import PANEL_SHOT
+
+        samples, batch = self.panel_inputs()
+        return samples, self.panels(batch, PANEL_SHOT)["density"].cpu().numpy()
+
+    def log_val_panels(self, epoch: int, wandb_step: int) -> None:
+        """The ``val/density_<name>`` triptychs (``val_panel``) to
+        TensorBoard at ``epoch`` and W&B at ``wandb_step``
+        (countr_tpu/cli/finetune.py:524-548)."""
+        samples, out = self.panel_densities()
+        for s, density in zip(samples, out):
+            panel = val_panel(s, density)
+            self.tb.image(f"val/density_{s['name']}", panel, epoch)
+            self.wandb.image(f"val/density_{s['name']}", panel, wandb_step)
 
     def _keep(self, epoch: int, val_mae: float) -> None:
         """Periodic, last and minimum-MAE checkpoints (reference:
@@ -446,6 +561,8 @@ class Finetune:
             self.min_mae = val_mae
             ckpt.save_checkpoint(os.path.join(self.outdir, "ckpt_minMAE"), epoch, self.state,
                                  keep=1)
+            # the best checkpoint as an artifact (reference: util/misc.py:331-335)
+            self.wandb.log_artifact(os.path.join(self.outdir, "ckpt_minMAE"), "finetuning_minMAE")
 
     def run(self) -> List[Dict]:
         try:
@@ -456,6 +573,7 @@ class Finetune:
     def close(self) -> None:
         self.train_dl.close()
         self.val_dl.close()
+        self.tb.flush()
 
 
 def main(args, graphed=None) -> List[Dict]:

@@ -11,8 +11,10 @@ N`` (or under torchrun), as ``cli/finetune.py`` describes: the global
 ``--batch_size`` must be a multiple of N, as the JAX CLI shards it over
 its mesh.
 
-Not ported, as in ROADMAP.md: the hub stream (without ``--carpk_root``
-this exits as the JAX package does without its client).
+Without ``--carpk_root`` the samples come from the Deep Lake hub stream
+(``data/carpk.py CarpkHub``), and the CLI exits as the JAX package does
+where the ``hub`` client does not import. ``--debug_nans`` runs eager
+steps under anomaly detection (``common.nan_watched``).
 
 Usage:
   python -m countr_tpu_torch.cli.finetune_carpk --carpk_root /data/CARPK \\
@@ -97,6 +99,8 @@ class FinetuneCarpk:
         from countr_tpu_torch.engine import train as engine
 
         self.args = args
+        if args.debug_nans:
+            graphed = False
         self.mesh = mesh = common.init_ranks(args)
         self.rank, self.world = (mesh.rank, mesh.world) if mesh else (0, 1)
         self.main = self.rank == 0
@@ -210,8 +214,11 @@ class FinetuneCarpk:
         batches = device_prefetch(self.batches(epoch), self.device, self.batch_keys)
         if args.limit_steps:
             batches = itertools.islice(batches, args.limit_steps)
+        metrics = self.step_metrics(batches)
+        if args.debug_nans:
+            metrics = common.nan_watched(metrics, lambda i: f"epoch {epoch} step {i}")
         totals, n = None, 0
-        for m in self.step_metrics(batches):
+        for m in metrics:
             totals = m if totals is None else {k: totals[k] + m[k] for k in totals}
             n += 1
             if n % 32 == 0 and not torch.isfinite(totals["loss"]):

@@ -15,7 +15,12 @@ bicubic band products. On the card every step is replayed from a CUDA graph
 captured before the first batch. Data parallel with ``--n_devices N`` (or
 under torchrun), as ``cli/finetune.py`` describes: each rank loads its
 slice of the global batch and draws the masking noise at the global
-batch's shape, keeping its rows. W&B is not carried.
+batch's shape, keeping its rows. The optional W&B run (``--wandb_project``)
+gets what the JAX CLI logs: the step scalars every ``--log_every`` global
+steps, each epoch's record, and the periodic and params-only checkpoints
+as the ``pretrain_periodic`` and ``pretrain_params`` artifacts.
+``--debug_nans`` runs eager steps under anomaly detection
+(``common.nan_watched``).
 
 Usage:
   python -m countr_tpu_torch.cli.pretrain --data_path ./data/FSC147 \\
@@ -164,6 +169,8 @@ class Pretrain:
         from countr_tpu_torch.engine import train_store
 
         self.args = args
+        if args.debug_nans:
+            graphed = False
         self.mesh = mesh = common.init_ranks(args)
         self.rank, self.world = (mesh.rank, mesh.world) if mesh else (0, 1)
         self.main = self.rank == 0
@@ -174,6 +181,7 @@ class Pretrain:
         logs = self.outdir if self.main else None
         self.jsonl = JsonlLogger(logs)
         self.tb = TBWriter(os.path.join(logs, "tb") if logs else None)
+        self.wandb = common.make_wandb(args, enabled=self.main)
         self.resident = args.resident_data
         self.store = None
         if self.resident:
@@ -246,7 +254,8 @@ class Pretrain:
             m = self.train_step(self._inputs(batch))
             gstep += 1
             if args.log_every and gstep % args.log_every == 0 and self.main:
-                loss, lr = float(m["loss"]), self.state.schedule(gstep)
+                loss, lr = float(m["loss"]), float(self.state.schedule(gstep))
+                self.wandb.log({"train/loss_step": loss, "train/lr_step": lr}, step=gstep)
                 self.tb.scalar("train/loss_step", loss, gstep)
                 self.tb.scalar("train/lr_step", lr, gstep)
                 print(f"[step {gstep}] loss {loss:.4f} lr {lr:.3e}", flush=True)
@@ -278,8 +287,11 @@ class Pretrain:
         batches = device_prefetch(self.train_dl.epoch(epoch), self.device, self.batch_keys)
         if args.limit_steps:
             batches = itertools.islice(batches, args.limit_steps)
+        metrics = self.step_metrics(batches, epoch * self.steps_per_epoch)
+        if args.debug_nans:
+            metrics = common.nan_watched(metrics, lambda i: f"epoch {epoch} step {i}")
         total, n = None, 0
-        for m in self.step_metrics(batches, epoch * self.steps_per_epoch):
+        for m in metrics:
             total = m["loss"] if total is None else total + m["loss"]
             n += 1
             if n % 32 == 0 and not torch.isfinite(total):
@@ -304,6 +316,8 @@ class Pretrain:
                     f"({stats['epoch_time_s']:.1f}s)", flush=True)
         self.jsonl.write(stats)
         self.tb.scalar("train/loss", stats["train/loss"], epoch)
+        # the global step axis of the per-step scalars
+        self.wandb.log(stats, step=(epoch + 1) * self.steps_per_epoch)
         self._keep(epoch)
         return stats
 
@@ -311,7 +325,9 @@ class Pretrain:
         """Periodic checkpoints (keep 5) every ``--ckpt_every`` epochs and at
         the last; the crash-resume one (keep 1) and the params-only one that
         ``cli.finetune --init_from_mae`` reads (keep 1) every
-        ``--ckpt_last_every`` epochs and at the last."""
+        ``--ckpt_last_every`` epochs and at the last. W&B gets the periodic
+        and the params-only directories as artifacts (reference:
+        util/misc.py:331-335)."""
         from countr_tpu_torch.engine import checkpoint as ckpt
 
         if not self.outdir or not self.main:
@@ -321,11 +337,14 @@ class Pretrain:
         if (args.ckpt_every and (epoch + 1) % args.ckpt_every == 0) or last:
             ckpt.save_checkpoint(os.path.join(self.outdir, "ckpt_periodic"), epoch, self.state,
                                  keep=5)
+            self.wandb.log_artifact(os.path.join(self.outdir, "ckpt_periodic"),
+                                    "pretrain_periodic")
         if epoch % max(1, args.ckpt_last_every) == 0 or last:
             ckpt.save_checkpoint(os.path.join(self.outdir, "ckpt_last"), epoch, self.state,
                                  keep=1)
             ckpt.save_checkpoint(os.path.join(self.outdir, "ckpt_params"), epoch, self.model,
                                  keep=1)
+            self.wandb.log_artifact(os.path.join(self.outdir, "ckpt_params"), "pretrain_params")
 
     def run(self) -> List[Dict]:
         try:

@@ -255,3 +255,21 @@ class TrainConfig:
         # reference: FSC_finetune_cross.py:220-221 (lr = blr * eff/256)
         return self.blr * world_batch / 256.0
 
+
+
+@dataclasses.dataclass(frozen=True)
+class TestConfig:
+    """Inference-engine knobs (reference: FSC_test_cross(few-shot).py:26-78;
+    the JAX package's ``TestConfig``)."""
+
+    split: str = "test"
+    external: bool = False
+    box_bound: int = -1
+    # >= this many tiny (<10x10) exemplars triggers 3x3 grid mode
+    # (reference: FSC_test_cross(few-shot).py:59-60, :264-273).
+    max_s_cnt: int = 1
+    normalization: bool = True
+    # windows per device forward (CountingEngine's batch_windows); a
+    # multiple of the device count when the chunks are split over devices
+    batch_windows: int = 16
+    seed: int = 0

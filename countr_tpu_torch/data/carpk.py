@@ -1,15 +1,19 @@
-"""CARPK car counting: the local dataset and the train and test recipes
+"""CARPK car counting: the datasets and the train and test recipes
 (counterpart of ``countr_tpu/data/carpk.py``: ``CarpkLocal``,
-``_crop_resize64``, ``carpk_train_sample``, ``carpk_test_sample``,
-``carpk_postprocess``, ``load_carpk``).
+``CarpkHub``, ``_crop_resize64``, ``carpk_train_sample``,
+``carpk_test_sample``, ``carpk_postprocess``, ``load_carpk``).
 
-The reference streams CARPK from Deep Lake (reference:
-FSC_test_CARPK.py:115-117 hub://activeloop/carpk-test). That needs a
-network client, so the port reads only the standard on-disk layout
-(Images/*.png + Annotations/*.txt lines "x1 y1 x2 y2 [cls]"
-[+ ImageSets/<split>.txt]). Samples mirror the hub tensors the reference
-consumes: RGB uint8 pixels, boxes as (x, y, w, h), the box count as the
-label count.
+Two sources:
+
+- "hub": the reference's Deep Lake stream (reference:
+  FSC_finetune_CARPK.py:134-137 hub://activeloop/carpk-train,
+  FSC_test_CARPK.py:115-117 carpk-test), where the ``hub`` client
+  imports;
+- "local": the standard on-disk layout (Images/*.png + Annotations/*.txt
+  lines "x1 y1 x2 y2 [cls]" [+ ImageSets/<split>.txt]).
+
+Samples mirror the hub tensors the reference consumes: RGB uint8 pixels,
+boxes as (x, y, w, h), the box count as the label count.
 """
 
 from __future__ import annotations
@@ -53,6 +57,31 @@ class CarpkLocal:
             "boxes_xywh": np.asarray(boxes, np.float32).reshape(-1, 4),
             "count": len(boxes),
             "name": im_id,
+        }
+
+
+class CarpkHub:
+    """The Deep Lake stream ``hub://activeloop/carpk-<split>``; importing
+    the ``hub`` client raises ImportError where it is not installed."""
+
+    def __init__(self, split: str = "train"):
+        import hub
+
+        self.ds = hub.load(f"hub://activeloop/carpk-{split}")
+
+    def __len__(self) -> int:
+        return len(self.ds)
+
+    def __getitem__(self, idx: int) -> Dict:
+        item = self.ds[idx]
+        image = np.asarray(item.images.numpy(), np.uint8)
+        boxes = np.asarray(item.boxes.numpy(), np.float32).reshape(-1, 4)
+        labels = item.labels.numpy()
+        return {
+            "image": image,
+            "boxes_xywh": boxes,
+            "count": int(np.asarray(labels).reshape(-1).shape[0]),
+            "name": str(idx),
         }
 
 
@@ -133,15 +162,17 @@ def carpk_postprocess(density: np.ndarray, pos: np.ndarray) -> float:
     return pred
 
 
-def load_carpk(split: str, root: str = "") -> CarpkLocal:
-    """The local CARPK directory ``root``. The reference's hub stream
-    needs a network client, which the port does not carry: without a
-    root this exits as the JAX package does when that client is
-    missing."""
+def load_carpk(split: str, root: str = ""):
+    """The local CARPK directory ``root`` when given, else the hub stream
+    (the reference's source); exits where the ``hub`` client does not
+    import, as the JAX package does."""
     if root:
         return CarpkLocal(root, split)
-    raise SystemExit(
-        "CARPK: the 'hub' (Deep Lake) client is unavailable in this "
-        "environment; pass --carpk_root pointing at a local CARPK "
-        "directory (Images/ + Annotations/ [+ ImageSets/])"
-    )
+    try:
+        return CarpkHub(split)
+    except ImportError as e:
+        raise SystemExit(
+            "CARPK: the 'hub' (Deep Lake) client is unavailable in this "
+            "environment; pass --carpk_root pointing at a local CARPK "
+            "directory (Images/ + Annotations/ [+ ImageSets/])"
+        ) from e

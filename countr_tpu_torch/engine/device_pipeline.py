@@ -268,7 +268,8 @@ class DevicePipeline:
     raises otherwise, where the JAX package warns and runs on one device
     (``countr_tpu/engine/device_pipeline.py:429-438``)."""
 
-    def __init__(self, model, device: torch.device, devices=None, batch_windows: int = 16):
+    def __init__(self, model, device: torch.device, devices=None, batch_windows: int = 16,
+                 debug_nans: bool = False):
         self.model = model
         self.device = device
         self.devices = (device,)
@@ -287,7 +288,9 @@ class DevicePipeline:
 
             self.replicas = replicate_to_mesh(Mesh(self.devices), model)
             self._weights = self._signature()
-        self.forwards = [_device_forward(m, d) for m, d in zip(self.replicas, self.devices)]
+        self.graphed = device.type == "cuda" and not debug_nans
+        self.forwards = [_device_forward(m, d, debug_nans)
+                         for m, d in zip(self.replicas, self.devices)]
         self.forward = self.forwards[0] if n == 1 else self._sharded_forward
         self._in_flight: list = []  # (event, pinned host buffers) per upload batch
 
@@ -362,11 +365,32 @@ class DevicePipeline:
         return counts, esum, (density if want_density else None)
 
 
-def _device_forward(model, device: torch.device):
+def _device_forward(model, device: torch.device, debug_nans: bool = False):
     """The window forward on ``device``: ``GraphedForward`` on a card,
-    eager on the CPU."""
+    eager on the CPU; with ``debug_nans`` eager everywhere, and the first
+    window batch whose density holds a NaN raises ``FloatingPointError``
+    (``nan_checked``)."""
+    if debug_nans:
+        return nan_checked(model.forward_tokens)
     if device.type == "cuda":
         from countr_tpu_torch.engine.graphs import GraphedForward
 
         return GraphedForward(model)
     return model.forward_tokens
+
+
+def nan_checked(forward):
+    """``forward(windows, y)`` that raises ``FloatingPointError`` naming
+    the window batch (counted from 1) whose density holds a NaN: the
+    counting CLIs' ``--debug_nans``."""
+    calls = [0]
+
+    def checked(windows: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        calls[0] += 1
+        den = forward(windows, y)
+        if not bool(torch.isfinite(den).all()):
+            raise FloatingPointError(f"--debug_nans: NaN in the density of window batch "
+                                     f"{calls[0]}")
+        return den
+
+    return checked

@@ -40,7 +40,7 @@ import torch
 from countr_tpu_torch import disable_tf32, resolve_device
 from countr_tpu_torch.config import DENSITY_SCALE, EXEMPLAR_SIZE, TTN_THRESHOLD, WINDOW
 from countr_tpu_torch.engine.device_pipeline import (
-    MAP_KEYS, DevicePipeline, forward_buckets, width_bucket,
+    MAP_KEYS, DevicePipeline, forward_buckets, nan_checked, width_bucket,
 )
 from countr_tpu_torch.engine.stitch import (
     grid_crop_boxes, resample_maps, stitch, stitch_weights, window_starts,
@@ -103,6 +103,9 @@ class CountingEngine:
     devices: ``count_batch``'s window chunks split over these devices
       (``device`` first; ``DevicePipeline``): the JAX package's ``mesh``.
       ``batch_windows`` must be a multiple of their number.
+    debug_nans: eager window forwards (no CUDA graph), and the first window
+      batch whose density holds a NaN raises ``FloatingPointError``
+      (``--debug_nans``).
     """
 
     def __init__(
@@ -120,6 +123,7 @@ class CountingEngine:
         narrow_policy: str = "pad",
         device=None,
         devices=None,
+        debug_nans: bool = False,
     ):
         self.device = resolve_device(device)
         # an fp32 stage (the fp32 model, the mixed modes' head) runs its
@@ -137,7 +141,10 @@ class CountingEngine:
         self.narrow_policy = narrow_policy
         self.forward_batches = 0  # model forwards run by count (window batches)
         self.h2d_bytes = 0  # pixel, exemplar and plan bytes count_batch uploaded
-        self._pipeline = DevicePipeline(self.model, self.device, devices, batch_windows)
+        self._pipeline = DevicePipeline(self.model, self.device, devices, batch_windows,
+                                        debug_nans=debug_nans)
+        self._nan_check = nan_checked(lambda w, y: self.model.forward_tokens(w, y)) \
+            if debug_nans else None
 
     @torch.inference_mode()
     def _forward_windows(self, windows: torch.Tensor, y: torch.Tensor) -> np.ndarray:
@@ -152,7 +159,7 @@ class CountingEngine:
             if pad:
                 chunk = torch.cat([chunk, chunk.new_zeros((pad, *chunk.shape[1:]))])
             yb = y[:1].expand(b, *y.shape[1:])
-            den = self.model.forward_tokens(chunk, yb)
+            den = (self._nan_check or self.model.forward_tokens)(chunk, yb)
             self.forward_batches += 1
             outs.append(den[: b - pad].cpu().numpy())
         if not outs:
@@ -257,10 +264,10 @@ class CountingEngine:
         """On the card, capture the window forward's CUDA graph at every
         window bucket ``count_batch`` can run (``forward_buckets``) for
         each shot count, so that no later call captures one; a no-op on
-        the CPU. Returns the number of graphs held."""
-        if self.device.type != "cuda":
-            return 0
+        the CPU and with ``debug_nans``. Returns the number of graphs held."""
         pipe = self._pipeline
+        if not pipe.graphed:
+            return 0
         dd = self.model.cfg.decoder_embed_dim
         for bk in forward_buckets(self.batch_windows, len(pipe.devices)):
             windows = torch.zeros((bk, WINDOW, WINDOW, 3), device=self.device)

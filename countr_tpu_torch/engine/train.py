@@ -705,6 +705,23 @@ def make_eval_step(model: nn.Module, graphed: bool | None = None, mesh=None):
         batch["image"], batch["gt_density"], batch["boxes"], batch["valid"]), graphed)
 
 
+PANEL_SHOT = 3  # the validation panels' shot (countr_tpu/cli/finetune.py:536)
+
+
+def make_panel_forward(model: nn.Module, graphed: bool | None = None):
+    """Returns panel(batch, shot_num) -> {'density': [n, H, W] fp32}, the
+    forward of batch {'image' [n, H, W, 3], 'boxes' [n, 3, 64, 64, 3]}
+    without autograd: the finetune CLI's validation panels (the JAX CLI's
+    eager ``model.apply``, countr_tpu/cli/finetune.py:524-548), at
+    ``PANEL_SHOT``. Graphs as in ``_eval_step`` (``panel.capture(batch,
+    shot_num)`` captures one ahead)."""
+    def device_forward(image, boxes, *, shot_num: int) -> Dict:
+        return {"density": model(image, boxes, shot_num).float()}
+
+    return _eval_step(next(model.parameters()).device, device_forward,
+                      lambda batch: (batch["image"], batch["boxes"]), graphed)
+
+
 def make_store_eval_step(model: nn.Module, val_arrays: Mapping, graphed: bool | None = None,
                          mesh=None):
     """Returns eval(batch, shot_num) -> the sums of ``make_eval_step`` over

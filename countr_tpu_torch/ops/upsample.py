@@ -1,5 +1,6 @@
-"""2x bilinear upsampling with torch ``align_corners=False`` semantics
-(counterpart of ``countr_tpu/ops/upsample.py``).
+"""2x bilinear upsampling with torch ``align_corners=False`` semantics, and
+the general bilinear resize (counterpart of ``countr_tpu/ops/upsample.py``:
+``upsample2x_bilinear``, ``resize_bilinear``).
 
 The density head's four 2x upsamples (reference: models_mae_cross.py:
 189-196) are one small contraction per spatial axis against an exact,
@@ -13,6 +14,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from countr_tpu_torch.ops import device_constant
 
@@ -47,3 +49,13 @@ def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:
     _, h, w, _ = x.shape
     y = torch.einsum("nhwc,hH->nHwc", x, up2x_matrix(h, x))
     return torch.einsum("nHwc,wW->nHWc", y, up2x_matrix(w, x))
+
+
+def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """General bilinear resize of NHWC input: half-pixel centers, no
+    antialias (the JAX package's ``jax.image.resize(..., "bilinear",
+    antialias=False)``, which equals F.interpolate's align_corners=False
+    bilinear, up or down), in ``x``'s dtype."""
+    y = F.interpolate(x.permute(0, 3, 1, 2).float(), size=(out_h, out_w), mode="bilinear",
+                      align_corners=False, antialias=False)
+    return y.permute(0, 2, 3, 1).to(x.dtype)

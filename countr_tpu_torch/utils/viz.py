@@ -1,7 +1,8 @@
 """Visual outputs of the inference CLIs (counterpart of ``box_map``,
-``make_grid``, ``save_prediction_panel``, ``save_exemplar_strip`` and
-``save_results`` in ``countr_tpu/utils/viz.py``), on the host with PIL
-and numpy.
+``make_grid``, ``save_prediction_panel``, ``save_exemplar_strip``,
+``save_results``, ``frames_to_video``, ``write_zeroshot_annotations``,
+``write_annotations_gt`` and ``write_predicted_points`` in
+``countr_tpu/utils/viz.py``), on the host with PIL, cv2 and numpy.
 
 They cover the reference's artifacts: exemplar box overlays (reference:
 util/misc.py:534-542 get_box_map), the 3x3 grid-mode density composite
@@ -15,6 +16,7 @@ drawn when matplotlib imports.
 from __future__ import annotations
 
 import csv
+import json
 import os
 from typing import List, Optional, Sequence
 
@@ -105,6 +107,74 @@ def save_exemplar_strip(path: str, boxes: np.ndarray) -> None:
     strip = np.concatenate(list(boxes), axis=1)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     _to_pil(strip).save(path)
+
+
+def frames_to_video(frame_dir: str, out_path: str, fps: float = 30.0) -> bool:
+    """Stitch a directory of frames (sorted by name) into an mp4v video;
+    False when it holds none (reference: util/misc.py:623-633 frames2vid)."""
+    import cv2
+
+    frames = sorted(f for f in os.listdir(frame_dir)
+                    if f.lower().endswith((".png", ".jpg", ".jpeg")))
+    if not frames:
+        return False
+    first = cv2.imread(os.path.join(frame_dir, frames[0]))
+    h, w = first.shape[:2]
+    vw = cv2.VideoWriter(out_path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+    for f in frames:
+        img = cv2.imread(os.path.join(frame_dir, f))
+        if img.shape[:2] != (h, w):
+            img = cv2.resize(img, (w, h))
+        vw.write(img)
+    vw.release()
+    return True
+
+
+def write_zeroshot_annotations(dir_path: str, h: int = 960, w: int = 1280) -> None:
+    """FSC147-format metadata for a folder of images without annotations:
+    <dir>/images/* -> <dir>/annotations.json (no points or boxes per image)
+    and <dir>/split.json ({"test": [...]}), so that the zero-shot test CLI
+    runs on it (reference: util/misc.py:470-489, whose hand-written JSON
+    has trailing commas; this one is valid JSON)."""
+    imdir = os.path.join(dir_path, "images")
+    names = sorted(f for f in os.listdir(imdir) if os.path.isfile(os.path.join(imdir, f)))
+    anno = {n: {"H": h, "W": w, "box_examples_coordinates": [], "points": []} for n in names}
+    with open(os.path.join(dir_path, "annotations.json"), "w", encoding="utf-8") as f:
+        json.dump(anno, f, indent=2)
+    with open(os.path.join(dir_path, "split.json"), "w", encoding="utf-8") as f:
+        json.dump({"test": names}, f, indent=2)
+
+
+def write_annotations_gt(old_annotations: str, new_annotations: str, gt_csv: str) -> None:
+    """Merge a VIA-export CSV of dot annotations (filename and
+    region_shape_attributes JSON with cx/cy) into an FSC147-format
+    annotations file (reference: util/misc.py:492-506)."""
+    with open(old_annotations, encoding="utf-8") as f:
+        anno = json.load(f)
+    points: dict = {}
+    with open(gt_csv, newline="", encoding="utf-8") as f:
+        for row in csv.DictReader(f):
+            shape = json.loads(row["region_shape_attributes"])
+            if "cx" in shape and "cy" in shape:
+                points.setdefault(row["filename"], []).append([shape["cx"], shape["cy"]])
+    for filename, pts in points.items():
+        anno[filename]["points"] = pts
+    with open(new_annotations, "w", encoding="utf-8") as f:
+        json.dump(anno, f, indent=4)
+
+
+def write_predicted_points(path: str, name: str, density: np.ndarray,
+                           threshold: float = 0.1) -> None:
+    """The predicted object locations of one image (the density's local
+    maxima over 5x5 above ``threshold``) and its count, as JSON."""
+    from scipy import ndimage as ndi
+
+    maxima = (density == ndi.maximum_filter(density, size=5)) & (density > threshold)
+    ys, xs = np.nonzero(maxima)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump({"image": name, "count": float(density.sum() / 60.0),
+                   "points_xy": [[int(x), int(y)] for x, y in zip(xs, ys)]}, f)
 
 
 def save_results(

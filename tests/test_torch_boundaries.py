@@ -1,9 +1,10 @@
 """Boundaries of the port package countr_tpu_torch: it imports neither
 JAX nor the JAX package (its data-parallel modules ``parallel.dist`` and
-``parallel.mesh`` included), its entry points (the CLIs' --device and
-their ``--n_devices`` ranks too) default to the CUDA card and raise
-without one, its stitch geometry equals the JAX package's, and no file of
-it calls a library attention kernel or torch.compile."""
+``parallel.mesh``, and the host-only ``cli.aggregate``, ``utils.viz`` and
+``entry`` included), its entry points (the CLIs' --device and their
+``--n_devices`` ranks, and ``entry.entry``, too) default to the CUDA card
+and raise without one, its stitch geometry equals the JAX package's, and
+no file of it calls a library attention kernel or torch.compile."""
 
 import os
 import pkgutil
@@ -31,7 +32,9 @@ def test_imports_no_jax():
     mods = _modules()
     for m in ("engine.inference", "native", "data.imcache", "data.loader", "data.fsc147",
               "ops.augment", "cli.finetune", "engine.train_store", "engine.carpk_store",
-              "cli.finetune_carpk", "cli.pretrain", "parallel.dist", "parallel.mesh"):
+              "cli.finetune_carpk", "cli.pretrain", "parallel.dist", "parallel.mesh",
+              "cli.aggregate", "entry", "utils.metrics", "utils.viz", "utils.profiling",
+              "ops.posembed", "ops.upsample", "data.carpk", "config"):
         assert f"countr_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -82,6 +85,18 @@ def test_entry_points_default_to_cuda():
             cli.main(cli.get_args(["--n_devices", "2", "--batch_size", "2"]))
     with pytest.raises(ValueError, match="0 CUDA device"):
         get_mesh(2)
+
+
+def test_entry_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is valid here")
+    import inspect
+
+    from countr_tpu_torch.entry import entry
+
+    assert inspect.signature(entry).parameters["device"].default is None
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry()
 
 
 def test_engine_rejects_bad_input():
@@ -135,3 +150,24 @@ def test_config_constants_match_jax():
                   "decoder_depth", "decoder_num_heads", "patch_size", "img_size"):
             assert getattr(c, f) == getattr(j, f), (k, f)
     assert countr_tpu_torch.resolve_device("cpu").type == "cpu"
+
+
+def test_packaging_names_the_ports_files():
+    """Every console script of the port resolves, the pretrain CLI has one,
+    and the package data covers every CUDA source and header the kernels
+    build from."""
+    import fnmatch
+    import importlib
+    import tomllib
+
+    conf = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    scripts = {k: v for k, v in conf["project"]["scripts"].items() if "countr_tpu_torch" in v}
+    assert "countr-torch-pretrain" in scripts
+    for name, target in scripts.items():
+        mod, fn = target.split(":")
+        assert callable(getattr(importlib.import_module(mod), fn)), name
+    globs = conf["tool"]["setuptools"]["package-data"]["countr_tpu_torch"]
+    sources = sorted(p.relative_to(PKG).as_posix() for p in (PKG / "csrc").iterdir())
+    assert any(s.endswith(".cuh") for s in sources)
+    for s in sources:
+        assert any(fnmatch.fnmatch(s, g) for g in globs), s

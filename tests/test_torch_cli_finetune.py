@@ -173,12 +173,15 @@ def test_init_from_mae_gives_jax_encoder(fsc_dir, pth, tmp_path, source):  # noq
     mae_sd = mae_state_dict_from_flax(jax.tree.map(np.asarray, mae_params))
     mae_pth = str(tmp_path / "mae.pth")
     torch.save({"model": {k: torch.from_numpy(v) for k, v in mae_sd.items()}}, mae_pth)
-    init_from = mae_pth
+    init_from, preset = mae_pth, ()
     if source == "port_dir":
         port_mae = build_mae("mae_vit_base_patch16", dtype="fp32", device="cpu", **tiny_mae)
         load_weights(port_mae, mae_sd)
         init_from = str(tmp_path / "mae_ckpt")
         save_checkpoint(init_from, 0, port_mae)
+        # a checkpoint directory names its MAE preset, as the JAX CLI's orbax one does
+        tcfg.MAE_PRESETS["tiny384mae"] = tcfg.MAEConfig(**tiny_mae)
+        preset = ("--init_from_mae_model", "tiny384mae")
 
     # JAX's path: the .pth through convert_mae_state_dict and transfer_encoder
     countr = jckpt.convert_countr_state_dict(jckpt.load_torch_checkpoint(pth), depth=1,
@@ -187,8 +190,11 @@ def test_init_from_mae_gives_jax_encoder(fsc_dir, pth, tmp_path, source):  # noq
                                             decoder_depth=1)
     want = state_dict_from_flax(jax.tree.map(np.asarray,
                                              jtrain.transfer_encoder(mae_flax, countr, depth=1)))
-    ft = tft.Finetune(tft.get_args(port_argv(fsc_dir, pth, str(tmp_path / "o"),
-                                             "--init_from_mae", init_from)))
+    try:
+        ft = tft.Finetune(tft.get_args(port_argv(fsc_dir, pth, str(tmp_path / "o"),
+                                                 "--init_from_mae", init_from, *preset)))
+    finally:
+        tcfg.MAE_PRESETS.pop("tiny384mae", None)
     ft.close()
     got = ft.model.state_dict()
     assert set(got) == set(want)

@@ -182,7 +182,7 @@ def test_ckpt_params_initialise_finetune(fsc_dir, pth, tmp_path):  # noqa: F811
     ft = tft.Finetune(tft.get_args([
         "--data_path", fsc_dir, "--model", PRESET, "--device", "cpu", "--dtype", "fp32",
         "--batch_size", str(B), "--epochs", "1", "--num_workers", "1", "--output_dir", "",
-        "--init_from_mae", os.path.join(out, "ckpt_params")]))
+        "--init_from_mae", os.path.join(out, "ckpt_params"), "--init_from_mae_model", PRESET]))
     ft.close()
     mae, cnt = run.model.state_dict(), ft.model.state_dict()
     enc = [k for k in cnt if k.startswith(("patch_embed.", "blocks.", "norm."))]
