@@ -11,7 +11,7 @@ Phases, one line each on stdout:
      attn_block.cu for B2, attn.cu for B3/B4, mlp_block.cu for B5 and
      cross_block.cu for B6, one nvcc each, started together) and the
      Triton kernel's first compile;
-  3. gemm: the GEMM that B2, B5 and B6 share (csrc/gemm.cuh, through
+  3. gemm: the GEMM that B2 and B5 share (csrc/gemm.cuh, through
      ops/gemm.py) at every product of the paths at 16 windows, against
      its plain version (max|d|), its graph-replayed ms and TFLOP/s
      beside torch.matmul's for the same epilogue-free product;
@@ -352,10 +352,23 @@ def phase_build():
     built = build_libraries([name for name, _ in libs])
     wall = time.perf_counter() - t0
     for name, (kernels, module) in libs:
-        rec = module.build()  # binds the library built above
+        rec = module.build()  # binds the library built above (B6's refuses a C7515)
+        extra = {}
+        if module is fused_cross:
+            # the one kernel's registers, spills and C7515 warnings per
+            # instantiation, and its dynamic shared memory at the decoder
+            report = fused_cross.ptxas_report(rec["log"])
+            if not report:
+                raise AssertionError("B6: no cross_block_kernel in the ptxas report")
+            spilled = [f["function"] for f in report
+                       if f.get("spill_stores", 0) or f.get("spill_loads", 0) or f["c7515"]]
+            if spilled:
+                raise AssertionError(f"B6: spills or C7515 in {spilled}")
+            extra = dict(kernel_ptxas=report,
+                         decoder_plan=fused_cross.plan(WINDOWS * 576, 512, 16))
         say("build", kernel=kernels, source=f"countr_tpu_torch/csrc/{name}.cu",
             nvcc_s=built[name][1]["seconds"], wall_s=wall, library=rec["path"],
-            ptxas=[ln.strip() for ln in rec["log"].splitlines() if "Used" in ln])
+            ptxas=[ln.strip() for ln in rec["log"].splitlines() if "Used" in ln], **extra)
 
 
 def ln_phase(torch, dev):
@@ -394,10 +407,10 @@ def ln_phase(torch, dev):
 
 # Every GEMM of the paths at 16 windows (M = 9216): (product, N, K,
 # epilogue) for B2's qkv and proj and B5's fc1 and fc2, encoder and
-# decoder. B6's q and proj are the decoder's 512 x 512.
+# decoder. (B6 runs its two 512 x 512 products in its own kernel.)
 GEMM_SHAPES = (
     ("B2 qkv, encoder", 2304, 768, "bias"), ("B2 proj, encoder", 768, 768, "residual"),
-    ("B2 qkv, decoder", 1536, 512, "bias"), ("B2 proj / B6 q, proj, decoder", 512, 512, "residual"),
+    ("B2 qkv, decoder", 1536, 512, "bias"), ("B2 proj, decoder", 512, 512, "residual"),
     ("B5 fc1, encoder", 3072, 768, "gelu_tanh"), ("B5 fc2, encoder", 768, 3072, "residual"),
     ("B5 fc1, decoder", 2048, 512, "gelu_tanh"), ("B5 fc2, decoder", 512, 2048, "residual"),
 )
@@ -405,7 +418,7 @@ GEMM_SHAPES = (
 
 def gemm_phase(torch, dev):
     """The shared GEMM at each product of GEMM_SHAPES: max|d| against
-    ``gemm_nt_plain`` (limit 2^-5·max(1, max|ref|), B5's and B6's), the
+    ``gemm_nt_plain`` (limit 2^-5·max(1, max|ref|), B5's), the
     kernel's graph-replayed ms and TFLOP/s beside ``torch.matmul`` of the
     same operands (no bias, no epilogue), and the card's bound."""
     from countr_tpu_torch.ops.gemm import gemm_nt, gemm_nt_plain
@@ -671,12 +684,26 @@ def mlp_phase(torch, dev, ab: dict):
     return shapes
 
 
+AB_CROSS_NY = (3, 1)  # scripts/ab_cross_block.py's token counts: the "ab" path's B6 calls
+
+
+def kernels_per_call(torch, fn) -> list:
+    """The device kernels that one call of ``fn`` runs, by name, from a
+    torch.profiler window around that call (after one call unprofiled)."""
+    rows = profile_run(torch, fn, 1)["top"]
+    return [{"kernel": r["kernel"], "calls": r["calls"]} for r in rows]
+
+
 def cross_phase(torch, dev, ab: dict):
     """B6 at scripts/ab_cross_block.py's decoder geometry, 16 windows:
-    [16, 576, 512], 16 heads, over ny 3 (three exemplars) and ny 1 (zero
-    shot: the shot token). No model path runs it (as in the JAX
-    package): the checked call of each ny is the "ab" path's, counted into
-    ``ab``."""
+    [16, 576, 512], 16 heads, over ny 3 (three exemplars), ny 1 (zero
+    shot: the shot token) and ny 8 (the most the kernel takes). No model
+    path runs it (as in the JAX package): the checked calls at the A/B
+    geometries (ny 3 and 1) are the "ab" path's, counted into ``ab``;
+    ny 8's is checked beside them. Each line gives the device
+    kernels of one call (torch.profiler: 1, where the earlier four-launch
+    design ran 4) and the bytes the design moves through device
+    memory beside the bytes the bound counts."""
     import torch.nn.functional as F
     from countr_tpu_torch.ops.fused_cross import cross_block_plain, fused_cross_attention_block
 
@@ -685,7 +712,7 @@ def cross_phase(torch, dev, ab: dict):
     b, n, c, h = WINDOWS, 576, 512, 16
     hd = c // h
     shapes = []
-    for ny in (3, 1):
+    for ny in (3, 1, 8):
         xs = [randn_on(torch, rng, dev, (b, n, c)) for _ in range(4)]
         k, v = (randn_on(torch, rng, dev, (b, ny, c)) for _ in range(2))
         lns = randn_on(torch, rng, dev, (c,), 0.05, 1.0, f32)
@@ -707,23 +734,40 @@ def cross_phase(torch, dev, ab: dict):
             att = torch.einsum("bqhk,bkhd->bqhd", p, vh).reshape(b, n, c)
             return x + F.linear(att, wp, bp)
 
-        got = ab_call(torch, lambda: kernel(xs[0]), "B6", ab)
+        if ny in AB_CROSS_NY:
+            got = ab_call(torch, lambda: kernel(xs[0]), "B6", ab)
+        else:
+            n0 = fused_cross_attention_block.launches
+            got = kernel(xs[0])
+            if fused_cross_attention_block.launches != n0 + 1:
+                raise AssertionError(f"B6 ny {ny}: the call did not launch the kernel")
         want = plain(xs[0])
         err = max_abs(got, want)
         lim = BLOCK_TOL * max(1.0, float(want.float().abs().max()))
         if not err <= lim:
             raise AssertionError(f"B6 [{b},{n},{c}]x{h} ny {ny} max|d| {err} > {lim}")
+        launched = kernels_per_call(torch, lambda: kernel(xs[0]))
+        if sum(r["calls"] for r in launched) != 1:
+            raise AssertionError(f"B6 ny {ny}: one call ran {launched}, not one kernel")
         m = b * n
         flops = 4 * m * c * c + 4 * m * ny * c
-        bm, bb = bound(flops, 2 * m * c * 2 + 2 * b * ny * c * 2 + 2 * c * c * 2 + 2 * c * 2
-                       + 2 * c * 4)
+        # the bound's bytes: x in, y out, k and v, the weights, biases, LN
+        params = 2 * c * c * 2 + 2 * c * 2 + 2 * c * 4
+        bound_bytes = 2 * m * c * 2 + 2 * b * ny * c * 2 + params
+        # the design's: x twice (LN, then the residual, mostly an L2 hit,
+        # counted here as a miss); the four-launch design also wrote and
+        # read back LN(x), q and att
+        design_bytes = bound_bytes + m * c * 2
+        bm, bb = bound(flops, bound_bytes)
         args = [(x,) for x in xs]
         shapes.append(dict(
             shape=[b, n, c, h], ny=ny, max_abs_err=err, limit=lim,
             ms=graph_ms(torch, kernel, args), plain_ms=graph_ms(torch, plain, args, iters=4),
             library_ms=graph_ms(torch, library, args),
             library="F.layer_norm + F.linear + einsum softmax einsum + F.linear + add",
-            bound_ms=bm, bound_by=bb, gflop=flops / 1e9))
+            bound_ms=bm, bound_by=bb, gflop=flops / 1e9, device_kernels_per_call=launched,
+            bytes_design_moves=design_bytes, bytes_bound_counts=bound_bytes,
+            bytes_four_launch_design=bound_bytes + 6 * m * c * 2))
         say("kernel", name="B6 fused_cross_attention_block", **shapes[-1])
     return shapes
 
@@ -886,8 +930,8 @@ def profile_run(torch, run, steps: int):
     kernels = [r for r in rows if not r[0].startswith(("aten::", "Optimizer.", "autograd::"))]
     kernels.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in kernels)
-    ours = ("_ln_fwd", "ln_rows_kernel", "gemm_nt_kernel", "attn_resident_kernel",
-            "attn_twopass_kernel", "bwd_stats_kernel", "bwd_main_kernel")
+    ours = ("_ln_fwd", "ln_rows_kernel", "gemm_nt_kernel", "cross_block_kernel",
+            "attn_resident_kernel", "attn_twopass_kernel", "bwd_stats_kernel", "bwd_main_kernel")
     return dict(
         wall_ms=wall_ms, device_busy_ms=busy, idle_share=max(0.0, 1 - busy / wall_ms),
         port_kernels=[{"kernel": k[:90], "ms": ms, "calls": n} for k, ms, n in kernels
@@ -3411,8 +3455,13 @@ def main() -> int:
         entry("B5 fused_mlp_block", "cuda", "countr_tpu_torch/csrc/mlp_block.cu",
               "countr_tpu/ops/pallas_block.py:214", "ab", b5_shapes, redesigned_in=4),
         entry("B6 fused_cross_attention_block", "cuda", "countr_tpu_torch/csrc/cross_block.cu",
-              "countr_tpu/ops/pallas_block.py:398", "ab", b6_shapes, redesigned_in=3,
-              inherits="the GEMM of B2 and B5, csrc/gemm.cuh gemm_nt_kernel"),
+              "countr_tpu/ops/pallas_block.py:398", "ab", b6_shapes, redesigned_in=15,
+              design="one kernel a call, one block a tile of up to 72 rows (132 tiles at "
+                     "the decoder's shape: one wave): LN, q and att in shared memory, "
+                     "rows 0-63 by wgmma and 64-71 by mma.sync on the same TMA weight "
+                     "stages, the small-k attention on its own warps",
+              device_kernels_per_call=sum(r["calls"] for r in
+                                          b6_shapes[0]["device_kernels_per_call"])),
     ]}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

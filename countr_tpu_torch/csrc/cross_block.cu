@@ -1,37 +1,79 @@
 // Kernel B6: the cross-attention half-block y = x + proj(attn(q(LN(x)),
 // k, v)) of the interaction decoder, over precomputed k, v [B, ny <= 8, C]
-// (the exemplar tokens), forward, bf16 activations, for Hopper (sm_90a).
+// (the exemplar tokens), forward, bf16 activations, for Hopper (sm_90a),
+// in ONE kernel launch: LN(x), q and the attention output stay in shared
+// memory; only x, the weights, k, v and y touch device memory.
 //
 // Replaces countr_tpu/ops/pallas_block.py::_cross_block_kernel (launched
-// by _fused_cross, public entry fused_cross_attention_block). As in the
+// by _fused_cross, public entry fused_cross_attention_block), whose point
+// is the avoided device-memory round trips of LN(x), q and att. As in the
 // JAX package it is wired into no model; its entry is driven by the A/B
 // measurements.
 //
 // What bounds it on the H100: tensor-core operations, barely. At 16
 // windows of the decoder ([16, 576, 512], 16 heads, ny 3) the q and proj
-// products are 9.7 GFLOP, 9.8 us at 989 TFLOP/s; the attention itself is
-// 0.06 GFLOP; device-memory traffic (x in, y out, weights) is ~20 MB,
-// 6 us at 3.35 TB/s, and the q and att round trips add 38 MB (11 us).
+// products are 9.7 GFLOP, 9.8 us at 989 TFLOP/s; the attention is 0.06
+// GFLOP; device-memory traffic (x in, y out, the two weights, k, v) is
+// ~20 MB, 6 us at 3.35 TB/s. The four-launch design before this one (LN,
+// the q GEMM, the small-k attention, the proj GEMM) also wrote and read
+// back LN(x), q and att (~57 MB more).
 //
-// What the design does about it: four kernels back to back on the
-// caller's stream, the intermediates through scratch that the caller
-// allocates (q [M, C] and att [M, C], M = B*N); the two products run on
-// the GEMM that B2 and B5 share (gemm.cuh: wgmma, TMA into an mbarrier
-// ring, persistent tiles), which this kernel inherits:
-//   1. LN (gemm.cuh): fp32 statistics and affine, bf16 result into att
-//      (free until step 3);
-//   2. q GEMM (gemm.cuh): q = bf16(bf16(att . Wq^T) + bq);
-//   3. small-k attention: one thread per 8 columns of a row; the hd/8
-//      threads of a head are neighbouring lanes and exchange partial
-//      logits by shuffles, so a (row, head) pair needs no shared memory
-//      and k, v (a few KB per batch element) stay in L1/L2. For each key
-//      j < ny: logit = fp32(q . k_j) * hd^-0.5 * log2(e); then the exact
-//      max, p = exp2(logit - max), s += p (fp32), acc += bf16(p) * v_j
-//      (fp32), and att = bf16(acc / s): the TPU kernel's rounding points
-//      (pallas_block.py:405-436), division after PV;
-//   4. proj GEMM + bias + residual (gemm.cuh).
-// Step 3 is memory-bound: q in and att out, 2 x 9.4 MB at 16 windows,
-// ~6 us at 3.35 TB/s; the two GEMMs dominate.
+// What holds a fused design back on this card: each block streams both
+// weights (2 C^2 bf16, 1 MB at C = 512) from L2 through its ring for
+// every tile, ~17 us a product at the decoder's shape
+// (scripts/profile_torch_cross.py), whatever the tile's rows. 64-row
+// tiles give 144 tiles for 132 SMs at M = 9216, and the 12 left over
+// would cost a second full tile time. So:
+//   - Tiles: 64 rows while every tile fits on the SMs at once; past that
+//     one tile an SM of ceil(M / SMs) <= 72 rows (132 tiles of 69-70 rows
+//     at M = 9216): consumer warpgroup 1 takes rows 0-63 by wgmma,
+//     warpgroup 2 the rest (at most 8) by mma.sync m16n8k16 on the same
+//     weight stages, so the weights stream once for 72 rows.
+//   - Warps: warp 0 the producer (one thread: every TMA load), warps 1-3
+//     and warpgroup 3 attention, warpgroups 1-2 the consumers. 512
+//     threads, 128 registers each (the 64 x 128 fp32 fragment is 64).
+//   - x in: the producer TMA-loads the tile's x (64 x 64 boxes, and 8 x 64
+//     boxes for rows 64-71; 128-byte swizzle; rows past M read as zeros)
+//     into the att buffer, free until step 3.
+//   - 1-2. LN, the prologue: the 15 warps past the producer's take two
+//     rows at a time, one warp a row as gemm.cuh's ln_rows_kernel (fp32
+//     mean, fp32 variance of x - mean, rsqrt, fp32 affine, bf16), into
+//     the xn buffer in the K-major 128-byte-swizzled layout that wgmma
+//     reads as A (padding columns up to a multiple of 64 as zeros).
+//   - 3. q product in N-slices of 128 columns: Wq's 128 x 64 K-slices
+//     come through a ring of stages by TMA, each stage read by both
+//     consumer warpgroups. A slice's fragment is rounded as t = bf16(acc),
+//     q = bf16(t + bq) and written into the att buffer (same layout);
+//     then the slice's q is handed to the attention (an mbarrier).
+//   - The attention (the small-k softmax over ny <= 8 keys), in place,
+//     in chunks of 32 lanes' work: a lane takes min(hd, 32) columns of a
+//     row (a head of 64 or more spans neighbouring lanes, which exchange
+//     partial logits by shuffles), k and v read from L1/L2 per row's
+//     batch element (a tile may straddle several). The attention warps
+//     take chunks from a shared counter while the consumers run the next
+//     slices' products; the consumers join once their q products are
+//     done. Per key: logit = fp32(q . k_j) * hd^-0.5 * log2(e); then the
+//     exact max, p = exp2(logit - max), s += p (fp32), acc += bf16(p) * v_j
+//     (fp32), att = bf16(acc / s): the TPU kernel's rounding points
+//     (pallas_block.py:405-436), the division after PV, done as one
+//     correctly rounded reciprocal and an FMA step per column (div_rn).
+//   - 4. proj product: A = att, each 128-column slice of it once its
+//     attention is done; Wproj through the ring. Once the q products have
+//     retired the producer TMA-loads x again (the residual, mostly from
+//     L2) into the xn buffer. Epilogue as gemm.cuh's EPI_BIAS_RESID: t =
+//     bf16(acc), t = bf16(t + bproj), y = bf16(x + t) (bf16x2 adds: each
+//     the exact sum rounded once); warpgroup 1 writes y over the residual
+//     and TMA-stores 64 x 64 boxes (columns past C, rows past M clipped),
+//     warpgroup 2 stores its few rows straight to device memory.
+// Only the order of the fp32 sums differs from cross_block_plain.
+//
+// Shared memory (227 KB a block), at C = 512 with 72-row tiles:
+//   xn   64 + 8 rows x 512 bf16    72 KB  (LN(x); then the residual and y)
+//   att  64 + 8 rows x 512 bf16    72 KB  (x; then q; then att)
+//   ring 5 stages x 128 x 64 bf16  80 KB
+//   mbarriers, row offsets, work counter 1.3 KB; alignment slack 1 KB
+// = 226 KB. The 64-row tiles take 256 * C bytes for the two buffers, so
+// C <= 768 (192 KB, 2 stages); 72-row tiles need C <= 512.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (no --use_fast_math). Plain C interface, bound
@@ -41,82 +83,663 @@
 
 namespace {
 
-constexpr int XK_MAX = 8;  // the most key tokens step 3 takes
-constexpr int XK_THREADS = 256;
+constexpr int XR = 64;       // rows of a tile's first warpgroup: one wgmma M
+constexpr int XR1 = 8;       // rows of its second, in the 72-row tiles
+constexpr int XRT = XR + XR1;
+constexpr int XK_MAX = 8;    // the most key tokens
+constexpr int XC_MAX = 768;  // LN(x) and att of a tile resident
+constexpr int XLN_VEC = XC_MAX / 256;  // 16-byte vectors per lane of a row
+constexpr int XLN_ROWS = 2;            // rows a warp normalises at once
+constexpr int XSMEM_MAX = 227 * 1024;
+constexpr int XSTAGES_MAX = 6;
+constexpr int XSLICES_MAX = XC_MAX / 64;  // slices of the attention's work, at most
+constexpr uint32_t XCHUNK = XR * 128;     // 64 rows x 64 bf16 columns: one TMA box, 8 KB
+constexpr uint32_t XCHUNK1 = XR1 * 128;   // 8 rows x 64 columns, 1 KB
 
-__device__ __forceinline__ void load8(const bf16* p, float (&out)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
+constexpr int XBW = 128;  // the products' N-slices: output columns per pass of a warpgroup
+// Threads of a block: warp 0 the producer, warps 1-3 attention, two
+// consumer warpgroups, a fourth warpgroup of attention warps.
+constexpr int XTHREADS = 512;
+
+__host__ __device__ constexpr int x_chunks(int C) { return (C + 63) / 64; }
+
+// xn and att (64-row chunks, then, in the 72-row tiles, 8-row chunks),
+// nst ring stages of 128 x 64 bf16, the mbarriers (full and empty per
+// stage; q ready and att ready per slice; x in, q retired, residual in),
+// the rows' k/v offsets and the work counter, and 1 KB to align the base
+// to the swizzle's 1024-byte period.
+inline size_t cross_smem_bytes(int C, int nst, bool ext) {
+  return (size_t)2 * x_chunks(C) * (XCHUNK + (ext ? XCHUNK1 : 0)) + (size_t)nst * XBW * 128 +
+         (2 * nst + 2 * XSLICES_MAX + 3) * 8 + XRT * 8 + 16 + 1024;
+}
+
+// Ring stages that fit (at least 2), or 0.
+inline int cross_stages(int C, bool ext) {
+  int nst = XSTAGES_MAX;
+  while (nst >= 2 && cross_smem_bytes(C, nst, ext) > (size_t)XSMEM_MAX) --nst;
+  return nst >= 2 ? nst : 0;
+}
+
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 u;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(u.x), "=r"(u.y), "=r"(u.z), "=r"(u.w)
+               : "r"(addr));
+  return u;
+}
+__device__ __forceinline__ void sts128(uint32_t addr, uint4 u) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(u.x), "r"(u.y),
+               "r"(u.z), "r"(u.w)
+               : "memory");
+}
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t w;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(w) : "r"(addr));
+  return w;
+}
+__device__ __forceinline__ void sts32(uint32_t addr, uint32_t w) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(w) : "memory");
+}
+__device__ __forceinline__ void unpack8(const uint4& u, float (&out)[8]) {
   const bf16* e = reinterpret_cast<const bf16*>(&u);
 #pragma unroll
   for (int j = 0; j < 8; ++j) out[j] = bf2f(e[j]);
 }
 
-// q [B*N, C] -> att [B*N, C] over k, v [B, ny, C] (head h at columns
-// h*hd of each). Thread i owns the 16-byte vector i of the flattened q;
-// VPH = hd / 8 threads share a head (VPH divides 32, so a head's lanes
-// never straddle a warp). Lanes past the end load vector 0 and store
-// nothing, so every lane of a warp takes part in the shuffles.
-template <int VPH>
-__global__ void __launch_bounds__(XK_THREADS) smallk_attn_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ att, int N, int C, int ny, float scale, long long total) {
-  const long long i = (long long)blockIdx.x * XK_THREADS + threadIdx.x;
-  const bool valid = i < total;
-  const long long iv = valid ? i : 0;
-  const int cv = C / 8;
-  const long long row = iv / cv;
-  const int col = (int)(iv % cv) * 8;
-  const long long kv_base = (row / N) * ny * (long long)C + col;
-
-  float qv[8];
-  load8(q + row * C + col, qv);
-  float logit[XK_MAX];
-  float mx = -CUDART_INF_F;
-#pragma unroll
-  for (int j = 0; j < XK_MAX; ++j) {
-    if (j < ny) {  // ny is the same for the whole grid
-      float kj[8];
-      load8(k + kv_base + (long long)j * C, kj);
-      float d = 0.f;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) d += qv[e] * kj[e];
-#pragma unroll
-      for (int o = VPH / 2; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
-      logit[j] = d * scale;
-      mx = fmaxf(mx, logit[j]);
-    }
-  }
-  float s = 0.f, acc[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) acc[e] = 0.f;
-#pragma unroll
-  for (int j = 0; j < XK_MAX; ++j) {
-    if (j < ny) {
-      const float p = exp2f(logit[j] - mx);
-      s += p;
-      const float pb = bf2f(f2bf(p));
-      float vj[8];
-      load8(v + kv_base + (long long)j * C, vj);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[e] += pb * vj[e];
-    }
-  }
-  if (!valid) return;
-  uint4 u;
-  bf16* o = reinterpret_cast<bf16*>(&u);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) o[e] = f2bf(acc[e] / s);
-  *reinterpret_cast<uint4*>(att + row * C + col) = u;
+// a / b in fp32, correctly rounded, given rb = __frcp_rn(b): q = a * rb,
+// then one FMA step on the exact remainder a - b * q (Markstein's
+// theorem: with rb the correctly rounded reciprocal, the result is a / b
+// rounded to nearest, barring overflow and underflow, which s >= 1 and
+// |a| <= s * max|v| rule out). One reciprocal per row and head instead
+// of a division per column.
+__device__ __forceinline__ float div_rn(float a, float b, float rb) {
+  const float q = __fmul_rn(a, rb);
+  return __fmaf_rn(__fmaf_rn(-q, b, a), rb, q);
 }
 
-template <int VPH>
-cudaError_t launch_smallk(const bf16* q, const bf16* k, const bf16* v, bf16* att, int M,
-                          int N, int C, int ny, float scale, cudaStream_t stream) {
-  const long long total = (long long)M * (C / 8);
-  const long long blocks = (total + XK_THREADS - 1) / XK_THREADS;
-  smallk_attn_kernel<VPH><<<(unsigned)blocks, XK_THREADS, 0, stream>>>(
-      q, k, v, att, N, C, ny, scale, total);
+// A tile buffer: rows 0-63 in 64 x 64 chunks of 8 KB at `main`, rows
+// 64-71 in 8 x 64 chunks of 1 KB at `ext`, both in the 128-byte swizzle
+// (the 16-byte unit u of a row's chunk at u ^ (row % 8)). The byte
+// address of the unit holding column `col` (a multiple of 8) of row r.
+struct TileBuf {
+  uint32_t main, ext;
+  __device__ __forceinline__ uint32_t unit(int r, int col) const {
+    const uint32_t sw = (((col & 63) >> 3) ^ (r & 7)) << 4;
+    return r < XR ? main + (col >> 6) * XCHUNK + r * 128 + sw
+                  : ext + (col >> 6) * XCHUNK1 + (r - XR) * 128 + sw;
+  }
+};
+
+// LN of the tile's rows 0 .. rows - 1, from x at `in` to LN(x) at `out`
+// (`out` may be `in`: a row is read whole before it is written), by the
+// WARPS warps past the producer's: warp g takes rows g, g + WARPS, ...,
+// two at a time. Lane l holds the row's 16-byte units l, l + 32, l + 64
+// and their LN scale and shift. As gemm.cuh's ln_rows_kernel: fp32 mean,
+// fp32 variance of x - mean, rsqrt, fp32 affine, bf16; padding columns up
+// to a multiple of 64 written as zeros.
+template <int WARPS>
+__device__ __forceinline__ void ln_tile(TileBuf in, TileBuf out, int rows,
+                                        const float* __restrict__ lns,
+                                        const float* __restrict__ lnb, int C, int KC, float eps,
+                                        uint32_t xin_bar, int lane) {
+  float ga[XLN_VEC][8], be[XLN_VEC][8];
+#pragma unroll
+  for (int i = 0; i < XLN_VEC; ++i) {
+    const int c0 = (i * 32 + lane) * 8;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 g4 = c0 < C ? __ldg(reinterpret_cast<const float4*>(lns + c0) + h)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 b4 = c0 < C ? __ldg(reinterpret_cast<const float4*>(lnb + c0) + h)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+      ga[i][4 * h] = g4.x, ga[i][4 * h + 1] = g4.y, ga[i][4 * h + 2] = g4.z, ga[i][4 * h + 3] = g4.w;
+      be[i][4 * h] = b4.x, be[i][4 * h + 1] = b4.y, be[i][4 * h + 2] = b4.z, be[i][4 * h + 3] = b4.w;
+    }
+  }
+  mbar_wait(xin_bar, 0);
+  for (int r1 = (threadIdx.x >> 5) - 1; r1 < rows; r1 += XLN_ROWS * WARPS) {
+    float e[XLN_ROWS][XLN_VEC][8], mean[XLN_ROWS], rstd[XLN_ROWS];
+#pragma unroll
+    for (int q = 0; q < XLN_ROWS; ++q) {
+      const int r = min(r1 + q * WARPS, rows - 1);  // a row past the tile repeats the last
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < XLN_VEC; ++i) {
+        const int c0 = (i * 32 + lane) * 8;
+        if (c0 < C) {
+          unpack8(lds128(in.unit(r, c0)), e[q][i]);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) sum += e[q][i][j];
+        }
+      }
+      mean[q] = sum;
+    }
+#pragma unroll
+    for (int q = 0; q < XLN_ROWS; ++q) mean[q] = warp_sum(mean[q]) / (float)C;
+#pragma unroll
+    for (int q = 0; q < XLN_ROWS; ++q) {
+      float sq = 0.f;
+#pragma unroll
+      for (int i = 0; i < XLN_VEC; ++i) {
+        if ((i * 32 + lane) * 8 < C) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float d = e[q][i][j] - mean[q];
+            sq += d * d;
+          }
+        }
+      }
+      rstd[q] = sq;
+    }
+#pragma unroll
+    for (int q = 0; q < XLN_ROWS; ++q) rstd[q] = rsqrtf(warp_sum(rstd[q]) / (float)C + eps);
+#pragma unroll
+    for (int q = 0; q < XLN_ROWS; ++q) {
+      const int r = r1 + q * WARPS;
+      if (r < rows) {
+#pragma unroll
+        for (int i = 0; i < XLN_VEC; ++i) {
+          const int c0 = (i * 32 + lane) * 8;
+          if (c0 < KC * 64) {
+            uint4 o = make_uint4(0u, 0u, 0u, 0u);  // padding columns: zeros
+            if (c0 < C) {
+              bf16* ho = reinterpret_cast<bf16*>(&o);
+#pragma unroll
+              for (int j = 0; j < 8; ++j)
+                ho[j] = f2bf((e[q][i][j] - mean[q]) * rstd[q] * ga[i][j] + be[i][j]);
+            }
+            sts128(out.unit(r, c0), o);
+          }
+        }
+      }
+    }
+  }
+}
+
+// The attention, in place in the att buffer, over the tile's rows 0 ..
+// rows - 1, in chunks of 32 units (a unit: CPL = min(hd, 32) columns of a
+// row, one lane's); chunk c is units 32 (c % cps) .. + 31 of slice c /
+// cps (SW columns), taken once the slice's q is in (qready). Warps take
+// chunks one at a time from the shared counter `work`, so the attention
+// warps and, after their q products, the consumer warps share the work;
+// each finished chunk arrives on its slice's attready mbarrier (cps
+// arrivals). A head of more than 32 columns spans LPH neighbouring lanes,
+// which exchange partial logits by shuffles. For each key j < ny: logit
+// = fp32(q . k_j) * hd^-0.5 * log2(e); then the exact max, p = exp2(logit
+// - max), s += p (fp32), acc += bf16(p) * v_j (fp32), att = bf16(acc / s).
+template <int SW, int HD>
+__device__ __forceinline__ void attention_chunks(TileBuf att, int rows, uint32_t qready_bar,
+                                                 uint32_t attready_bar,
+                                                 const unsigned long long* kv_rows, int* work,
+                                                 const bf16* __restrict__ k,
+                                                 const bf16* __restrict__ v, int S, int C,
+                                                 int ny, float scale, int lane) {
+  constexpr int CPL = HD < 32 ? HD : 32;  // columns per lane
+  constexpr int LPH = HD / CPL;           // lanes per head
+  constexpr int G = CPL / 8;              // 16-byte groups per lane
+  constexpr int UPR = SW / CPL;           // units per row of a slice
+  const int cps = (rows * UPR + 31) / 32;  // chunks per slice
+  const int total = S * cps;
+  while (true) {
+    int c = 0;
+    if (lane == 0) c = atomicAdd(work, 1);
+    c = __shfl_sync(0xffffffffu, c, 0);
+    if (c >= total) break;
+    const int i = c / cps;
+    mbar_wait(qready_bar + 8 * i, 0);
+    const int u = (c % cps) * 32 + lane;
+    const int r = min(u / UPR, rows - 1);  // units past the tile's rows repeat its last
+    const int col = i * SW + (u % UPR) * CPL;
+    const bool valid = u < rows * UPR && col < C;
+    const int cv = col < C ? col : i * SW;  // a head past C reads the slice's first
+    const bf16* kr = k + kv_rows[r] + cv;
+    const bf16* vr = v + kv_rows[r] + cv;
+    float q[G][8];
+#pragma unroll
+    for (int g = 0; g < G; ++g) unpack8(lds128(att.unit(r, cv + 8 * g)), q[g]);
+    float lg[XK_MAX];
+    float mx = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < XK_MAX; ++j) {
+      if (j < ny) {  // ny is the same for the whole grid
+        float part[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          float kj[8];
+          unpack8(__ldg(reinterpret_cast<const uint4*>(kr + (size_t)j * C + 8 * g)), kj);
+          part[g] = 0.f;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) part[g] += q[g][e] * kj[e];
+        }
+#pragma unroll
+        for (int w = 1; w < G; w *= 2)
+#pragma unroll
+          for (int g = 0; g + w < G; g += 2 * w) part[g] += part[g + w];
+        float d = part[0];
+#pragma unroll
+        for (int o = LPH / 2; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
+        lg[j] = d * scale;
+        mx = fmaxf(mx, lg[j]);
+      }
+    }
+    float s = 0.f, acc[G][8];
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < XK_MAX; ++j) {
+      if (j < ny) {
+        const float p = exp2f(lg[j] - mx);
+        s += p;
+        const float pb = bf2f(f2bf(p));
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          float vj[8];
+          unpack8(__ldg(reinterpret_cast<const uint4*>(vr + (size_t)j * C + 8 * g)), vj);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[g][e] += pb * vj[e];
+        }
+      }
+    }
+    if (valid) {
+      const float rs = __frcp_rn(s);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        uint4 o;
+        bf16* h = reinterpret_cast<bf16*>(&o);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) h[e] = f2bf(div_rn(acc[g][e], s, rs));
+        sts128(att.unit(r, cv + 8 * g), o);
+      }
+    }
+    // The chunk's att, visible to the proj products (the async proxy).
+    fence_async_shared();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(attready_bar + 8 * i);
+  }
+}
+
+// acc = A . W_slice^T over K = 64 * KC: A's K-chunk kc at a + kc * a_step
+// (a 64-row wgmma operand; where a_ready is not 0, each SW-column slice of
+// A once its mbarrier there has completed); W's K-slices from the ring,
+// stage seq in slot seq % nst, read by every consumer warpgroup, each
+// freeing it once the products that read it have retired (one K-slice
+// late).
+template <int SW>
+__device__ __forceinline__ void slice_product(float (&acc)[XBW / 2], uint32_t a, uint32_t a_step,
+                                              uint32_t a_ready, uint32_t ring,
+                                              uint32_t full_bar, uint32_t empty_bar, int nst,
+                                              int KC, int& seq, int lane) {
+#pragma unroll
+  for (int i = 0; i < XBW / 2; ++i) acc[i] = 0.f;
+  int prev = 0;
+  for (int kc = 0; kc < KC; ++kc, ++seq) {
+    const int slot = seq % nst;
+    if (a_ready && kc * 64 % SW == 0) mbar_wait(a_ready + 8 * (kc * 64 / SW), 0);
+    mbar_wait(full_bar + 8 * slot, (seq / nst) & 1);
+    const uint64_t da = sw128_desc(a + kc * a_step);
+    const uint64_t db = sw128_desc(ring + slot * (XBW * 128));
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) wgmma_m64n128(acc, da + 2 * k, db + 2 * k, 1);
+    wgmma_commit();
+    // The previous K-slice's products have retired: free its stage.
+    wgmma_wait<1>();
+    fence_regs(acc);
+    if (kc > 0 && lane == 0) mbar_arrive(empty_bar + 8 * prev);
+    prev = slot;
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  if (lane == 0) mbar_arrive(empty_bar + 8 * prev);
+}
+
+// Built with -DCROSS_BLOCK_TRACE (scripts/profile_torch_cross.py), each
+// of the first 160 blocks records the global timer at its phase ends:
+// 0 start, 2 LN done, 3 q products done, 4 the consumers' attention done,
+// 5 end (thread 128, consumer warpgroup 1); cross_block_trace copies them
+// out. Built without, the marks compile to nothing.
+#ifdef CROSS_BLOCK_TRACE
+__device__ unsigned long long g_trace[160][8];
+__device__ __forceinline__ void trace(int k) {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  if (blockIdx.x < 160) g_trace[blockIdx.x][k] = t;
+}
+#define TRACE(k) trace(k)
+#else
+#define TRACE(k)
+#endif
+
+// ldmatrix.x4 from a shared-memory address: lane l gives the address of
+// row l % 8 of matrix l / 8.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// The same product for the tile's rows 64-71, A's K-chunk kc at a1 + kc *
+// XCHUNK1 (8 rows), by mma.sync m16n8k16 whose rows 8-15 repeat rows 0-7:
+// warp wq of warpgroup 2 takes the slice's columns 32 wq .. 32 wq + 31,
+// acc1[nt] the C fragment of its n8-tile nt (elements 0-1: row lane / 4,
+// columns 2 (lane % 4) + {0, 1}; 2-3 the repeat). Each warp frees a stage
+// once its fragments are in registers.
+template <int SW>
+__device__ __forceinline__ void slice_product8(float (&acc1)[4][4], uint32_t a1,
+                                               uint32_t a_ready, uint32_t ring,
+                                               uint32_t full_bar, uint32_t empty_bar, int nst,
+                                               int KC, int& seq, int wq, int lane) {
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc1[nt][e] = 0.f;
+  const int lr = lane & 7, mi = lane >> 3;  // row and matrix this lane addresses
+  for (int kc = 0; kc < KC; ++kc, ++seq) {
+    const int slot = seq % nst;
+    if (a_ready && kc * 64 % SW == 0) mbar_wait(a_ready + 8 * (kc * 64 / SW), 0);
+    mbar_wait(full_bar + 8 * slot, (seq / nst) & 1);
+    __syncwarp();  // the lanes leave the wait one by one; ldmatrix and mma.sync need them all
+    const uint32_t stage = ring + slot * (XBW * 128);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      // A: (rows 0-7, k 0-7), the same again, (rows 0-7, k 8-15), again.
+      uint32_t a[4];
+      ldsm_x4(a, a1 + kc * XCHUNK1 + lr * 128 + (((2 * ks + (mi >> 1)) ^ lr) << 4));
+#pragma unroll
+      for (int pr = 0; pr < 2; ++pr) {
+        // B: n8-tiles 2 pr and 2 pr + 1, k 0-7 and 8-15 of each.
+        uint32_t b[4];
+        const int n = 32 * wq + 8 * (2 * pr + (mi >> 1)) + lr;
+        ldsm_x4(b, stage + n * 128 + (((2 * ks + (mi & 1)) ^ (n & 7)) << 4));
+        mma16816(acc1[2 * pr], a, b[0], b[1]);
+        mma16816(acc1[2 * pr + 1], a, b[2], b[3]);
+      }
+    }
+    // The stage's reads (generic proxy) ordered before the TMA that
+    // refills it (async proxy); without this fence the refill raced them.
+    __syncwarp();
+    fence_async_shared();
+    if (lane == 0) mbar_arrive(empty_bar + 8 * slot);
+  }
+}
+
+
+// y = x + proj(attn(q(LN(x)), k, v)) for the tile of block blockIdx.x:
+// with ext 0, rows 64 b .. 64 b + 63; with ext 1, rows M b / G .. M (b +
+// 1) / G (64 to 72 of them), the first 64 taken by consumer warpgroup 1
+// (wgmma), the rest by warpgroup 2 (mma.sync). map_x and map_y: [M, C] in
+// 64 x 64 boxes, map_x8 in 8 x 64 boxes; map_wq and map_wp: [C, C] in
+// 128 x 64 boxes; all 128-byte swizzle.
+template <int HD>
+__global__ void __launch_bounds__(XTHREADS, 1) cross_block_kernel(
+    const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_x8,
+    const __grid_constant__ CUtensorMap map_wq, const __grid_constant__ CUtensorMap map_wp,
+    const __grid_constant__ CUtensorMap map_y, bf16* __restrict__ y,
+    const float* __restrict__ lns, const float* __restrict__ lnb, const bf16* __restrict__ bq,
+    const bf16* __restrict__ k, const bf16* __restrict__ v, const bf16* __restrict__ bproj,
+    int M, int N, int C, int ny, int nst, int G, int ext, float eps, float scale) {
+  constexpr uint32_t STAGE = XBW * 128;
+  constexpr int SW = HD > XBW ? HD : XBW;  // attention slices: whole heads
+  constexpr int UPR = SW / (HD < 32 ? HD : 32);  // attention units per row of a slice
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int KC = x_chunks(C);         // 64-column chunks of K and of the buffers
+  const int S = (C + XBW - 1) / XBW;  // N-slices of each product
+  const int SA = (C + SW - 1) / SW;   // attention slices
+  const int m0 = ext ? (int)((long long)M * blockIdx.x / G) : blockIdx.x * XR;
+  const int rows = ext ? (int)((long long)M * (blockIdx.x + 1) / G) - m0 : min(XR, M - m0);
+  const bool two = rows > XR;  // the second consumer warpgroup has rows
+  const uint32_t ext_bytes = ext ? KC * XCHUNK1 : 0;
+  const TileBuf xn = {base, base + KC * XCHUNK};  // LN(x); then the residual x, then y
+  const TileBuf att = {xn.ext + ext_bytes, xn.ext + ext_bytes + KC * XCHUNK};  // x; q; att
+  const uint32_t ring = att.ext + ext_bytes;
+  const uint32_t full_bar = ring + nst * STAGE;      // [nst]: a stage has landed
+  const uint32_t empty_bar = full_bar + nst * 8;      // [nst]: a stage is free
+  const uint32_t qready_bar = empty_bar + nst * 8;    // [XSLICES_MAX]: a slice's q is in att
+  const uint32_t attready_bar = qready_bar + XSLICES_MAX * 8;  // [..]: a slice's att is in
+  const uint32_t xin_bar = attready_bar + XSLICES_MAX * 8;     // x has landed in att
+  const uint32_t qdone_bar = xin_bar + 8;  // the q products have retired
+  const uint32_t res_bar = qdone_bar + 8;  // the residual has landed in xn
+  // Each tile row's first k (and v) element, and the attention's next
+  // chunk of work.
+  unsigned long long* kv_rows =
+      reinterpret_cast<unsigned long long*>(smem_raw + (res_bar + 8 - smem_u32(smem_raw)));
+  int* work = reinterpret_cast<int*>(kv_rows + XRT);
+  const int wg = threadIdx.x >> 7;
+  const int lane = threadIdx.x & 31;
+  const int cw = two ? 8 : 4;  // consumer warps with rows
+  const uint32_t x_bytes = KC * XCHUNK + (two ? ext_bytes : 0);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < nst; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, cw);
+    }
+    for (int i = 0; i < XSLICES_MAX; ++i) {
+      mbar_init(qready_bar + 8 * i, cw * (SW / XBW));  // each product slice's warps
+      mbar_init(attready_bar + 8 * i, (rows * UPR + 31) / 32);  // the slice's chunks
+    }
+    mbar_init(xin_bar, 1);
+    mbar_init(qdone_bar, cw);
+    mbar_init(res_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    *work = 0;
+  }
+  if (threadIdx.x < XRT)  // a row past M reads row M - 1's keys and stores nothing
+    kv_rows[threadIdx.x] = (unsigned long long)(min(m0 + (int)threadIdx.x, M - 1) / N) * ny * C;
+  __syncthreads();
+  if (threadIdx.x == 128) TRACE(0);
+
+  if (threadIdx.x == 0) {
+    // Producer: x, then the W stages of both products in sequence, and
+    // the residual once no q product reads xn.
+    mbar_expect_tx(xin_bar, x_bytes);
+    for (int kc = 0; kc < KC; ++kc) {
+      tma_load_2d(att.main + kc * XCHUNK, &map_x, xin_bar, kc * 64, m0);
+      if (two) tma_load_2d(att.ext + kc * XCHUNK1, &map_x8, xin_bar, kc * 64, m0 + XR);
+    }
+    int seq = 0;
+    for (int prod = 0; prod < 2; ++prod) {
+      const CUtensorMap* map = prod ? &map_wp : &map_wq;
+      for (int i = 0; i < S; ++i) {
+        for (int kc = 0; kc < KC; ++kc, ++seq) {
+          const int slot = seq % nst;
+          mbar_wait(empty_bar + 8 * slot, ((seq / nst) & 1) ^ 1);
+          mbar_expect_tx(full_bar + 8 * slot, STAGE);
+          tma_load_2d(ring + slot * STAGE, map, full_bar + 8 * slot, kc * 64, i * XBW);
+          if (prod == 1 && i == 0 && kc == (KC < nst ? KC : nst) - 1) {
+            // The residual, once the ring holds the first proj slices
+            // and no q product reads xn any more; it lands while the
+            // proj products run.
+            mbar_wait(qdone_bar, 0);
+            mbar_expect_tx(res_bar, x_bytes);
+            for (int c = 0; c < KC; ++c) {
+              tma_load_2d(xn.main + c * XCHUNK, &map_x, res_bar, c * 64, m0);
+              if (two) tma_load_2d(xn.ext + c * XCHUNK1, &map_x8, res_bar, c * 64, m0 + XR);
+            }
+          }
+        }
+      }
+    }
+  } else if (threadIdx.x >= 32) {
+    // 1-2. LN of the tile's rows, from the att buffer into xn.
+    ln_tile<XTHREADS / 32 - 1>(att, xn, two ? XRT : XR, lns, lnb, C, KC, eps, xin_bar, lane);
+    // LN(x) visible to the wgmma (async) proxy; every row written and
+    // every read of x done before q overwrites it.
+    fence_async_shared();
+    named_bar_sync(1, XTHREADS - 32);
+    if (threadIdx.x == 128) TRACE(2);
+  }
+  const bool consumer = wg == 1 || (wg == 2 && two);
+  if (!consumer && threadIdx.x >= 32) {
+    attention_chunks<SW, HD>(att, rows, qready_bar, attready_bar, kv_rows, work, k, v, SA, C,
+                             ny, scale, lane);
+  } else if (consumer) {
+    // Consumer warpgroups: 1 takes rows 0-63 by wgmma (the thread's rows
+    // r0 and r0 + 8 at columns 8j + 2 q4 + {0, 1} of every 8-wide group
+    // j), 2 rows 64 .. rows - 1 by mma.sync (its warp wq's columns
+    // 32 wq + 8 nt + 2 q4 + {0, 1}, row 64 + r0 % 8).
+    const int t = threadIdx.x & 127, warp = t >> 5;
+    const bool first = wg == 1;
+    const int r0 = warp * 16 + (lane >> 2), q4 = lane & 3;
+    const int r1 = XR + (lane >> 2);
+    int seq = 0;
+
+    // 3. q product, slice by slice: q = bf16(bf16(acc) + bq) into the
+    // att buffer, handed to the attention.
+    for (int i = 0; i < S; ++i) {
+      const int n0 = i * XBW;
+      if (first) {
+        float acc[XBW / 2];
+        slice_product<SW>(acc, xn.main, XCHUNK, 0, ring, full_bar, empty_bar, nst, KC, seq, lane);
+#pragma unroll
+        for (int j = 0; j < XBW / 8; ++j) {
+          if (n0 + 8 * j < C) {
+            const __nv_bfloat162 b2 =
+                *reinterpret_cast<const __nv_bfloat162*>(bq + n0 + 8 * j + 2 * q4);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              __nv_bfloat162 t2 = __hadd2(
+                  __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]), b2);
+              sts32(att.unit(r0 + 8 * h, n0 + 8 * j) + q4 * 4, *reinterpret_cast<uint32_t*>(&t2));
+            }
+          }
+        }
+      } else {
+        float acc1[4][4];
+        slice_product8<SW>(acc1, xn.ext, 0, ring, full_bar, empty_bar, nst, KC, seq, warp, lane);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int c8 = n0 + 32 * warp + 8 * nt;
+          if (c8 < C && r1 < rows) {
+            const __nv_bfloat162 b2 = *reinterpret_cast<const __nv_bfloat162*>(bq + c8 + 2 * q4);
+            __nv_bfloat162 t2 = __hadd2(__floats2bfloat162_rn(acc1[nt][0], acc1[nt][1]), b2);
+            sts32(att.unit(r1, c8) + q4 * 4, *reinterpret_cast<uint32_t*>(&t2));
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(qready_bar + 8 * (n0 / SW));
+    }
+    // This warpgroup's q products have retired (and warpgroup 2's reads of
+    // xn are ordered before the residual's TMA): xn may take the residual.
+    __syncwarp();
+    fence_async_shared();
+    if (lane == 0) mbar_arrive(qdone_bar);
+    if (threadIdx.x == 128) TRACE(3);
+    // Until the products need att, help the attention warps with it.
+    attention_chunks<SW, HD>(att, rows, qready_bar, attready_bar, kv_rows, work, k, v, SA, C,
+                             ny, scale, lane);
+    if (threadIdx.x == 128) TRACE(4);
+
+    // 4. proj product, each K-slice once its att is in; bias, residual, y
+    // (over the residual in xn, stored by TMA; warpgroup 2's few rows
+    // straight to device memory).
+    for (int i = 0; i < S; ++i) {
+      const int n0 = i * XBW;
+      if (first) {
+        float acc[XBW / 2];
+        slice_product<SW>(acc, att.main, XCHUNK, attready_bar, ring, full_bar, empty_bar, nst,
+                          KC, seq, lane);
+        if (i == 0) mbar_wait(res_bar, 0);
+#pragma unroll
+        for (int g = 0; g < XBW / 8; g += EPI_GROUP) {
+          __nv_bfloat162 bv[EPI_GROUP];
+#pragma unroll
+          for (int jj = 0; jj < EPI_GROUP; ++jj) {
+            const int n = n0 + (g + jj) * 8 + 2 * q4;
+            bv[jj] = n < C ? *reinterpret_cast<const __nv_bfloat162*>(bproj + n)
+                           : __floats2bfloat162_rn(0.f, 0.f);
+          }
+#pragma unroll
+          for (int jj = 0; jj < EPI_GROUP; ++jj) {
+            const int j = g + jj, col = n0 + 8 * j;
+            if (col < C) {  // columns past C belong to no buffer column
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const uint32_t addr = xn.unit(r0 + 8 * h, col) + q4 * 4;
+                // bf16(acc), then bf16(t + bias), then bf16(x + t).
+                __nv_bfloat162 t2 = __hadd2(
+                    __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]), bv[jj]);
+                const uint32_t rw = lds32(addr);
+                t2 = __hadd2(*reinterpret_cast<const __nv_bfloat162*>(&rw), t2);
+                sts32(addr, *reinterpret_cast<uint32_t*>(&t2));
+              }
+            }
+          }
+        }
+        fence_async_shared();
+        named_bar_sync(2, 128);
+        if (t == 0) {
+          for (int bx = 0; bx < XBW / 64 && n0 + bx * 64 < C; ++bx)
+            tma_store_2d(&map_y, xn.main + ((n0 >> 6) + bx) * XCHUNK, n0 + bx * 64, m0);
+          bulk_commit();
+        }
+      } else {
+        float acc1[4][4];
+        slice_product8<SW>(acc1, att.ext, attready_bar, ring, full_bar, empty_bar, nst, KC, seq,
+                           warp, lane);
+        if (i == 0) mbar_wait(res_bar, 0);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int c8 = n0 + 32 * warp + 8 * nt, col = c8 + 2 * q4;
+          if (c8 < C && r1 < rows) {
+            const __nv_bfloat162 b2 = *reinterpret_cast<const __nv_bfloat162*>(bproj + col);
+            __nv_bfloat162 t2 = __hadd2(__floats2bfloat162_rn(acc1[nt][0], acc1[nt][1]), b2);
+            const uint32_t rw = lds32(xn.unit(r1, c8) + q4 * 4);
+            t2 = __hadd2(*reinterpret_cast<const __nv_bfloat162*>(&rw), t2);
+            *reinterpret_cast<__nv_bfloat162*>(y + (size_t)(m0 + r1) * C + col) = t2;
+          }
+        }
+      }
+    }
+    if (first && t == 0) bulk_wait_all();
+    if (threadIdx.x == 128) TRACE(5);
+  }
+}
+
+template <int HD>
+cudaError_t launch_cross(const CUtensorMap& mx, const CUtensorMap& mx8, const CUtensorMap& mwq,
+                         const CUtensorMap& mwp, const CUtensorMap& my, bf16* y,
+                         const float* lns, const float* lnb, const bf16* bq, const bf16* k,
+                         const bf16* v, const bf16* bproj, int M, int N, int C, int ny, int nst,
+                         int G, int ext, float eps, float scale, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      cross_block_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, XSMEM_MAX);
+  if (attr != cudaSuccess) return attr;
+  cross_block_kernel<HD><<<G, XTHREADS, cross_smem_bytes(C, nst, ext), stream>>>(
+      mx, mx8, mwq, mwp, my, y, lns, lnb, bq, k, v, bproj, M, N, C, ny, nst, G, ext, eps, scale);
   return cudaGetLastError();
+}
+
+// The tiling for M rows of width C over H heads: ring stages, tiles
+// (blocks), whether they are the 64-72-row tiles. Tiles of 64 rows while
+// they all fit on the SMs at once; past that, where shared memory has
+// room for the 8-row chunks, one tile an SM (up to 72 rows, the last 8 on
+// the second consumer warpgroup, so no SM waits for a second wave of
+// tiles); else 64-row tiles. False where the kernel does not take the
+// shape.
+struct CrossPlan {
+  int nst, G, ext;
+};
+inline bool cross_plan(int M, int C, int H, CrossPlan* p) {
+  const int hd = H > 0 ? C / H : 0;
+  if (C % 8 != 0 || C <= 0 || C > XC_MAX || hd * H != C || M <= 0) return false;
+  const int sms = sm_count(), tiles = (M + XR - 1) / XR;
+  const int nst_ext = cross_stages(C, true);
+  if (tiles > sms && nst_ext > 0) {
+    p->ext = 1;
+    p->nst = nst_ext;
+    p->G = (M + XRT - 1) / XRT > sms ? (M + XRT - 1) / XRT : sms;
+  } else {
+    p->ext = 0;
+    p->nst = cross_stages(C, false);
+    p->G = tiles;
+  }
+  return p->nst > 0;
 }
 
 }  // namespace
@@ -125,41 +748,69 @@ extern "C" {
 
 // y = x + proj(attn(q(LN(x)), k, v)) for x [B, N, C] bf16 and k, v
 // [B, ny, C] bf16, all pointers device pointers, 16-byte aligned: lns, lnb
-// fp32 [C]; wq, wproj bf16 [C, C]; bq, bproj bf16 [C]; scratch q and att
-// bf16 [B*N, C]; y bf16 [B, N, C]. Requires C % 8 == 0, C <= 2048,
-// 1 <= ny <= 8 and C / H in {8, 16, 32, 64, 128, 256}. Returns
-// cudaGetLastError() (0 on success).
+// fp32 [C]; wq, wproj bf16 [C, C] ([out, in]); bq, bproj bf16 [C]; y bf16
+// [B, N, C]. Requires C % 8 == 0, C <= 768, 1 <= ny <= 8 and C / H in {8,
+// 16, 32, 64, 128, 256}. One kernel launch. Returns cudaGetLastError() (0
+// on success).
 int cross_block_forward(const void* x, const void* lns, const void* lnb, const void* wq,
                         const void* bq, const void* k, const void* v, const void* wproj,
-                        const void* bproj, void* q, void* att, void* y, int B, int N,
-                        int C, int H, int ny, float eps, float scale, void* stream) {
+                        const void* bproj, void* y, int B, int N, int C, int H, int ny,
+                        float eps, float scale, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int M = B * N, hd = C / H;
-  if (C % 8 != 0 || C > 32 * 8 * LN_MAX_VEC || hd * H != C || ny < 1 || ny > XK_MAX ||
-      M <= 0)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = launch_ln((const bf16*)x, (const float*)lns, (const float*)lnb, eps,
-                              (bf16*)att, M, C, s);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_gemm<EPI_BIAS>((const bf16*)att, (const bf16*)wq, (const bf16*)bq, nullptr,
-                              (bf16*)q, M, C, C, s);
-  if (err != cudaSuccess) return (int)err;
-  const bf16 *qp = (const bf16*)q, *kp = (const bf16*)k, *vp = (const bf16*)v;
-  switch (hd) {
-    case 8: err = launch_smallk<1>(qp, kp, vp, (bf16*)att, M, N, C, ny, scale, s); break;
-    case 16: err = launch_smallk<2>(qp, kp, vp, (bf16*)att, M, N, C, ny, scale, s); break;
-    case 32: err = launch_smallk<4>(qp, kp, vp, (bf16*)att, M, N, C, ny, scale, s); break;
-    case 64: err = launch_smallk<8>(qp, kp, vp, (bf16*)att, M, N, C, ny, scale, s); break;
-    case 128: err = launch_smallk<16>(qp, kp, vp, (bf16*)att, M, N, C, ny, scale, s); break;
-    case 256: err = launch_smallk<32>(qp, kp, vp, (bf16*)att, M, N, C, ny, scale, s); break;
+  const int M = B * N;
+  CrossPlan p;
+  if (ny < 1 || ny > XK_MAX || !cross_plan(M, C, H, &p)) return (int)cudaErrorInvalidValue;
+  CUtensorMap mx, mx8, mwq, mwp, my;
+  cudaError_t err;
+  if ((err = make_map(&mx, (const bf16*)x, M, C, XR, 64)) != cudaSuccess ||
+      (err = make_map(&mx8, (const bf16*)x, M, C, XR1, 64)) != cudaSuccess ||
+      (err = make_map(&mwq, (const bf16*)wq, C, C, XBW, 64)) != cudaSuccess ||
+      (err = make_map(&mwp, (const bf16*)wproj, C, C, XBW, 64)) != cudaSuccess ||
+      (err = make_map(&my, (const bf16*)y, M, C, XR, 64)) != cudaSuccess)
+    return (int)err;
+  const float *sc = (const float*)lns, *sh = (const float*)lnb;
+  const bf16 *b1 = (const bf16*)bq, *kp = (const bf16*)k, *vp = (const bf16*)v,
+             *b2 = (const bf16*)bproj;
+  bf16* yp = (bf16*)y;
+#define CROSS_CASE(HDV)                                                                       \
+  case HDV:                                                                                     \
+    err = launch_cross<HDV>(mx, mx8, mwq, mwp, my, yp, sc, sh, b1, kp, vp, b2, M, N, C, ny, p.nst, \
+                            p.G, p.ext, eps, scale, s);                                         \
+    break;
+  switch (C / H) {
+    CROSS_CASE(8)
+    CROSS_CASE(16)
+    CROSS_CASE(32)
+    CROSS_CASE(64)
+    CROSS_CASE(128)
+    CROSS_CASE(256)
     default: return (int)cudaErrorInvalidValue;
   }
-  if (err != cudaSuccess) return (int)err;
-  err = launch_gemm<EPI_BIAS_RESID>((const bf16*)att, (const bf16*)wproj,
-                                    (const bf16*)bproj, (const bf16*)x, (bf16*)y, M, C, C,
-                                    s);
+#undef CROSS_CASE
   return (int)err;
 }
+
+// The launch plan for M rows of width C over H heads: out[0] the N-slice
+// width, out[1] ring stages, out[2] dynamic shared bytes per block,
+// out[3] blocks, out[4] rows per block at most (64, or up to 72). Returns
+// 0, or cudaErrorInvalidValue where the kernel does not take the shape.
+int cross_block_plan(int M, int C, int H, int* out) {
+  CrossPlan p;
+  if (!cross_plan(M, C, H, &p)) return (int)cudaErrorInvalidValue;
+  out[0] = XBW;
+  out[1] = p.nst;
+  out[2] = (int)cross_smem_bytes(C, p.nst, p.ext);
+  out[3] = p.G;
+  out[4] = p.ext ? (M + p.G - 1) / p.G : XR;
+  return 0;
+}
+
+#ifdef CROSS_BLOCK_TRACE
+// The phase marks of the last launch, [160][8] uint64 nanoseconds.
+int cross_block_trace(void* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_trace, sizeof(g_trace));
+}
+#endif
 
 const char* cross_block_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -11,13 +11,23 @@ and a library composition.
 
 What bounds it on the H100: tensor-core operations, 4·M·C² FLOP for the
 q and proj products (9.7 GFLOP at the decoder's [16, 576, 512], 9.8 us
-at 989 TFLOP/s) against ~20 MB of device-memory traffic (6 us); the
-attention over ny <= 8 keys is 4·M·ny·C FLOP, under 1% of it. What the
-design does about it: the two products on the Hopper GEMM that B2
-and B5 share (``csrc/gemm.cuh``: wgmma fed by TMA, persistent tiles,
-the output stored by TMA), the small-k attention as one thread per 8 columns
-with the head's lanes exchanging partial logits by shuffles, k and v
-read from L1/L2. The source's header has the details.
+at 989 TFLOP/s) against ~20 MB of device-memory traffic (x in, y out,
+the weights, k and v; 6 us); the attention over ny <= 8 keys is
+4·M·ny·C FLOP, under 1% of it. What the design does about it: one
+kernel launch per call. A block takes a tile of rows: 64, or, where 64-row
+tiles would need a second wave of blocks, one tile an SM of up to 72 rows.
+A producer warp brings x and the weights' K-slices by TMA; 15 warps
+normalise the tile's rows into shared memory (the A operand of the q
+product); two consumer warpgroups run both products on the same weight
+stages (rows 0-63 by wgmma, the rest by mma.sync) and round q into shared
+memory, where attention warps, joined by the consumers once their q
+products are done, turn it into att in place; the proj product reads att
+from shared memory, slice by slice as the attention finishes it, and adds
+the bias and the residual in its epilogue. LN(x), q and att never reach
+device memory; the wrapper allocates y and nothing else. The two
+resident buffers take 256·C bytes of the block's 227 KB at 64-row tiles
+(288·C at 72), so the kernel takes C <= 768 (72-row tiles up to 512);
+``csrc/cross_block.cu``'s header has the budget and the details.
 
 The plain version ``cross_block_plain`` follows the kernel, as B2's
 does: exp2 of logits scaled by hd^-0.5·log2(e), the unnormalised P cast
@@ -32,12 +42,16 @@ The entry is a ``torch.autograd.Function`` on a CUDA tensor with ny <= 8
 JAX entry takes its XLA route there (``:569-573``), and that route counts
 no launch. On a CPU tensor it is the plain version.
 ``fused_cross_attention_block.launches`` counts kernel launches. Weights
-are in torch's layout: ``w_q`` and ``w_proj`` [C_out, C_in].
+are in torch's layout: ``w_q`` and ``w_proj`` [C_out, C_in]. ``build``
+refuses a library in which ptxas serialised the kernel's wgmma (its
+C7515 warning); ``ptxas_report`` reads the kernel's registers, spills
+and warnings from the build log.
 """
 
 from __future__ import annotations
 
 import ctypes
+import re
 
 import torch
 import torch.nn.functional as F
@@ -47,10 +61,11 @@ from countr_tpu_torch.ops.fused_attn import LOG2E, attention_exp2
 from countr_tpu_torch.ops.norms import layer_norm
 from countr_tpu_torch.ops.vjp import recompute_vjp
 
-MAX_C = 2048  # the LN pass holds a row in one warp's registers
+MAX_C = 768  # LN(x) and att of a tile resident in shared memory
 MAX_NY = 8  # the kernel's key tokens; more take the plain route
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 ENTRY = "fused_cross_attention_block"
+KERNEL = "cross_block_kernel"
 
 
 def cross_block_plain(x, ln_scale, ln_bias, w_q, b_q, k, v, w_proj, b_proj,
@@ -63,12 +78,56 @@ def cross_block_plain(x, ln_scale, ln_bias, w_q, b_q, k, v, w_proj, b_proj,
     return x + (F.linear(att, w_proj.to(cd)) + b_proj.to(cd))
 
 
+def ptxas_report(log: str) -> list:
+    """The kernel's entry functions in nvcc's ``-Xptxas -v`` log, one dict
+    each: ``function`` (mangled), ``registers``, ``stack_frame``,
+    ``spill_stores`` and ``spill_loads`` (bytes), ``c7515`` (ptxas's
+    wgmma-serialisation warnings for it)."""
+    funcs, current, props = {}, None, None
+
+    def entry(name):
+        return funcs.setdefault(name, {"function": name, "c7515": []})
+
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = m.group(1)
+            entry(current)
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and props:
+            entry(props).update(stack_frame=int(m.group(1)), spill_stores=int(m.group(2)),
+                                spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current:
+            entry(current)["registers"] = int(m.group(1))
+            continue
+        if "C7515" in line:
+            named = re.search(r"'(_Z[^']+)'", line)
+            name = named.group(1) if named else current
+            if name:
+                entry(name)["c7515"].append(line.strip())
+    return [f for name, f in funcs.items() if KERNEL in name]
+
+
 def _lib():
     lib, record = build_library("cross_block")
     if not getattr(lib, "_countr_bound", False):
+        serialised = [f["function"] for f in ptxas_report(record["log"]) if f["c7515"]]
+        if serialised:
+            raise RuntimeError(f"{ENTRY}: ptxas serialised the wgmma of {serialised} "
+                               "(C7515); the build is refused")
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.cross_block_forward.argtypes = [vp] * 12 + [ci] * 5 + [cf, cf, vp]
+        lib.cross_block_forward.argtypes = [vp] * 10 + [ci] * 5 + [cf, cf, vp]
         lib.cross_block_forward.restype = ci
+        lib.cross_block_plan.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+        lib.cross_block_plan.restype = ci
         lib.cross_block_error_string.argtypes = [ci]
         lib.cross_block_error_string.restype = ctypes.c_char_p
         lib._countr_bound = True
@@ -79,6 +138,20 @@ def build() -> dict:
     """Build and load the kernel library; returns the build record
     (path, seconds, nvcc log)."""
     return _lib()[1]
+
+
+def plan(m: int, c: int, num_heads: int) -> dict:
+    """How the kernel runs M rows of width C over ``num_heads`` heads: the
+    products' N-slice width, ring stages, dynamic shared bytes per block,
+    blocks and rows per block at most (from the library's
+    ``cross_block_plan``)."""
+    lib, _ = _lib()
+    out = (ctypes.c_int * 5)()
+    rc = lib.cross_block_plan(m, c, num_heads, out)
+    if rc != 0:
+        raise ValueError(f"{ENTRY}: no plan for M={m}, C={c}, {num_heads} heads")
+    return {"slice_width": out[0], "ring_stages": out[1], "smem_bytes": out[2],
+            "blocks": out[3], "rows_per_block": out[4]}
 
 
 def _launch(x, ln_scale, ln_bias, w_q, b_q, k, v, w_proj, b_proj,
@@ -105,11 +178,9 @@ def _launch(x, ln_scale, ln_bias, w_q, b_q, k, v, w_proj, b_proj,
     wproj = operand(ENTRY, "w_proj", w_proj, bf, (c, c), dev)
     bproj = operand(ENTRY, "b_proj", b_proj, bf, (c,), dev)
     lib, _ = _lib()
-    q = torch.empty((b * n, c), device=dev, dtype=bf)
-    att = torch.empty((b * n, c), device=dev, dtype=bf)
     y = torch.empty_like(x)
     launch(ENTRY, lib.cross_block_forward, lib.cross_block_error_string, dev,
-           x, lns, lnb, wq, bq, k, v, wproj, bproj, q, att, y, b, n, c, num_heads, ny,
+           x, lns, lnb, wq, bq, k, v, wproj, bproj, y, b, n, c, num_heads, ny,
            eps, hd ** -0.5 * LOG2E)
     fused_cross_attention_block.launches += 1
     return y

@@ -17,8 +17,11 @@ rounding at most. B1's backward is the plain formula's VJP recomputed
 from the same inputs, so it equals autograd through the plain version
 bit for bit. The shared GEMM (ops/gemm.py) at every product of the
 paths and at ragged M, N and K: max|d| <= 2^-5 * max(1, max|ref|), the
-limit of B5 and B6, whose products it runs (kernel and plain version
-round at the same points and sum in another order). B2 and B3 also at
+limit of B5, whose products it runs, and of B6 (kernel and plain version
+round at the same points and sum in another order). B6, one kernel a
+call, also at 64-row tiles that straddle batch elements, a single
+partial tile and M not a multiple of 64; it gives the same bits on two
+calls and replayed from a CUDA graph. B2 and B3 also at
 N = 1, 577 and 641, where the attention core holds K and V in shared
 memory, and B3 at N = 832 and 833 at head dim 64, the last N it holds
 and the first past it (the two-pass route). B3 and B4 also on logits
@@ -271,10 +274,17 @@ def test_fused_mlp_matches_plain(cuda_device, b, n, c, hid, approx):
     assert float((got.float() - want.float()).abs().max()) <= lim
 
 
-# (b, n, c, heads, ny): every head dim the kernel is built for, 8 to 256
+# (b, n, c, heads, ny): every head dim the kernel is built for, 8 to 256;
+# the decoder's width with 64-row tiles that straddle batch elements at
+# ny 8, a single partial tile, and M = 90 (not a multiple of 64) at hd 64;
+# past 64 rows a tile on the H100's 132 SMs (M > 8448), the 65-72-row
+# tiles at hd 256, at 66-67 rows with C = 96 (hd 32 and hd 8), and at
+# 64-65 rows (some tiles without rows past 64)
 CROSS_SHAPES = [(16, 576, 512, 16, 3), (16, 576, 512, 16, 1), (2, 37, 96, 3, 8),
                 (3, 100, 64, 4, 5), (2, 70, 256, 2, 2), (2, 37, 64, 8, 2),
-                (2, 50, 768, 12, 3), (2, 33, 512, 2, 4)]
+                (2, 50, 768, 12, 3), (2, 33, 512, 2, 4), (3, 100, 512, 16, 8),
+                (1, 5, 512, 16, 2), (2, 45, 768, 12, 3), (16, 576, 512, 2, 3),
+                (2, 4400, 96, 3, 8), (2, 4400, 96, 12, 3), (2, 4225, 64, 4, 2)]
 
 
 def _cross_args(rng, dev, b, n, c, ny):
@@ -299,6 +309,42 @@ def test_fused_cross_matches_plain(cuda_device, b, n, c, h, ny):
     assert bool(torch.isfinite(got.float()).all())
     lim = BLOCK_TOL * max(1.0, float(want.float().abs().max()))
     assert float((got.float() - want.float()).abs().max()) <= lim
+
+
+@pytest.mark.parametrize("b,n,c,h,ny", [(16, 576, 512, 16, 3), (3, 100, 512, 16, 8)])
+def test_fused_cross_is_deterministic(cuda_device, b, n, c, h, ny):
+    rng = np.random.default_rng(11)
+    args = _cross_args(rng, cuda_device, b, n, c, ny)
+    first = fused_cross_attention_block(*args, h, 1e-6)
+    second = fused_cross_attention_block(*args, h, 1e-6)
+    assert torch.equal(first, second)
+
+
+def test_fused_cross_graphed_equals_eager(cuda_device):
+    """A call captured in a CUDA graph (after an eager warm-up, which
+    sets the kernel's attributes) and replayed gives the eager call's
+    bits, on the captured inputs and on new values copied into them."""
+    rng = np.random.default_rng(12)
+    args = _cross_args(rng, cuda_device, 16, 576, 512, 3)
+    eager = fused_cross_attention_block(*args, 16, 1e-6)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        fused_cross_attention_block(*args, 16, 1e-6)
+        n0 = fused_cross_attention_block.launches
+        with torch.cuda.graph(graph, stream=side):
+            out = fused_cross_attention_block(*args, 16, 1e-6)
+    torch.cuda.current_stream().wait_stream(side)
+    assert fused_cross_attention_block.launches == n0 + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    x2 = _t(rng, tuple(args[0].shape), cuda_device, dtype=torch.bfloat16)
+    args[0].copy_(x2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, fused_cross_attention_block(*args, 16, 1e-6))
 
 
 def test_fused_cross_takes_plain_route_above_8_tokens(cuda_device):
