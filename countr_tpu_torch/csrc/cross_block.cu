@@ -20,8 +20,8 @@
 //
 // What holds a fused design back on this card: each block streams both
 // weights (2 C^2 bf16, 1 MB at C = 512) from L2 through its ring for
-// every tile, ~17 us a product at the decoder's shape
-// (scripts/profile_torch_cross.py), whatever the tile's rows. 64-row
+// every tile, ~17 us a product at the decoder's shape (a phase-timed
+// development build, PERF.md section 6), whatever the tile's rows. 64-row
 // tiles give 144 tiles for 132 SMs at M = 9216, and the 12 left over
 // would cost a second full tile time. So:
 //   - Tiles: 64 rows while every tile fits on the SMs at once; past that
@@ -73,7 +73,9 @@
 //   ring 5 stages x 128 x 64 bf16  80 KB
 //   mbarriers, row offsets, work counter 1.3 KB; alignment slack 1 KB
 // = 226 KB. The 64-row tiles take 256 * C bytes for the two buffers, so
-// C <= 768 (192 KB, 2 stages); 72-row tiles need C <= 512.
+// C <= 768 (192 KB, 2 stages); 72-row tiles need C <= 512. Wider rows are
+// refused (the four-launch design took C up to 2048): att alone is 128 * C
+// bytes at 64 rows, so past 768 LN(x) would have to stream by K-chunks.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (no --use_fast_math). Plain C interface, bound
@@ -396,23 +398,6 @@ __device__ __forceinline__ void slice_product(float (&acc)[XBW / 2], uint32_t a,
   if (lane == 0) mbar_arrive(empty_bar + 8 * prev);
 }
 
-// Built with -DCROSS_BLOCK_TRACE (scripts/profile_torch_cross.py), each
-// of the first 160 blocks records the global timer at its phase ends:
-// 0 start, 2 LN done, 3 q products done, 4 the consumers' attention done,
-// 5 end (thread 128, consumer warpgroup 1); cross_block_trace copies them
-// out. Built without, the marks compile to nothing.
-#ifdef CROSS_BLOCK_TRACE
-__device__ unsigned long long g_trace[160][8];
-__device__ __forceinline__ void trace(int k) {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  if (blockIdx.x < 160) g_trace[blockIdx.x][k] = t;
-}
-#define TRACE(k) trace(k)
-#else
-#define TRACE(k)
-#endif
-
 // ldmatrix.x4 from a shared-memory address: lane l gives the address of
 // row l % 8 of matrix l / 8.
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -531,7 +516,6 @@ __global__ void __launch_bounds__(XTHREADS, 1) cross_block_kernel(
   if (threadIdx.x < XRT)  // a row past M reads row M - 1's keys and stores nothing
     kv_rows[threadIdx.x] = (unsigned long long)(min(m0 + (int)threadIdx.x, M - 1) / N) * ny * C;
   __syncthreads();
-  if (threadIdx.x == 128) TRACE(0);
 
   if (threadIdx.x == 0) {
     // Producer: x, then the W stages of both products in sequence, and
@@ -571,7 +555,6 @@ __global__ void __launch_bounds__(XTHREADS, 1) cross_block_kernel(
     // every read of x done before q overwrites it.
     fence_async_shared();
     named_bar_sync(1, XTHREADS - 32);
-    if (threadIdx.x == 128) TRACE(2);
   }
   const bool consumer = wg == 1 || (wg == 2 && two);
   if (!consumer && threadIdx.x >= 32) {
@@ -629,11 +612,9 @@ __global__ void __launch_bounds__(XTHREADS, 1) cross_block_kernel(
     __syncwarp();
     fence_async_shared();
     if (lane == 0) mbar_arrive(qdone_bar);
-    if (threadIdx.x == 128) TRACE(3);
     // Until the products need att, help the attention warps with it.
     attention_chunks<SW, HD>(att, rows, qready_bar, attready_bar, kv_rows, work, k, v, SA, C,
                              ny, scale, lane);
-    if (threadIdx.x == 128) TRACE(4);
 
     // 4. proj product, each K-slice once its att is in; bias, residual, y
     // (over the residual in xn, stored by TMA; warpgroup 2's few rows
@@ -697,7 +678,6 @@ __global__ void __launch_bounds__(XTHREADS, 1) cross_block_kernel(
       }
     }
     if (first && t == 0) bulk_wait_all();
-    if (threadIdx.x == 128) TRACE(5);
   }
 }
 
@@ -804,13 +784,6 @@ int cross_block_plan(int M, int C, int H, int* out) {
   out[4] = p.ext ? (M + p.G - 1) / p.G : XR;
   return 0;
 }
-
-#ifdef CROSS_BLOCK_TRACE
-// The phase marks of the last launch, [160][8] uint64 nanoseconds.
-int cross_block_trace(void* out) {
-  return (int)cudaMemcpyFromSymbol(out, g_trace, sizeof(g_trace));
-}
-#endif
 
 const char* cross_block_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -27,7 +27,10 @@ the bias and the residual in its epilogue. LN(x), q and att never reach
 device memory; the wrapper allocates y and nothing else. The two
 resident buffers take 256·C bytes of the block's 227 KB at 64-row tiles
 (288·C at 72), so the kernel takes C <= 768 (72-row tiles up to 512);
-``csrc/cross_block.cu``'s header has the budget and the details.
+on a CUDA tensor a wider C raises ValueError, where the four-launch
+design before it took C up to 2048 (no model of the repo runs B6; the
+decoder's C is 512). ``csrc/cross_block.cu``'s header has the budget and
+the details.
 
 The plain version ``cross_block_plain`` follows the kernel, as B2's
 does: exp2 of logits scaled by hd^-0.5·log2(e), the unnormalised P cast

@@ -1,162 +1,85 @@
-"""Profile kernel B6 (the cross-attention half-block,
-countr_tpu_torch/csrc/cross_block.cu) on one CUDA card, phase by phase.
+"""Time kernel B6 (the cross-attention half-block,
+countr_tpu_torch/csrc/cross_block.cu) on one CUDA card.
 
     python3 scripts/profile_torch_cross.py [--tree DIR] [--out FILE]
 
-At the decoder's [16, 576, 512], 16 heads, over ny 1, 3 and 8 (bf16,
-N(0, 1) activations, 0.05 N(0, 1) weights, as ``chip_smoke.cross_phase``
-makes them), it reports per ny:
-  - the call's device ms, graph-replayed (``chip_smoke.graph_ms``), and
-    its max|d| against ``cross_block_plain``;
-  - the block's phases from a build of this checkout's source with
-    -DCROSS_BLOCK_TRACE (each block records the global timer at its
-    phase ends): x in and LN, the q products, the consumers' share of
-    the attention, the proj products and the epilogue; the mean and the
-    largest over the blocks, in microseconds, and the last block's end
-    from the first block's start;
-  - with --tree DIR, the same call's ms through the wrappers of the port
-    under DIR (another commit's tree, unpacked with ``git archive`` into
-    a gitignored directory), timed in turns with this checkout's (DIR,
-    this, this, DIR).
-Prints one JSON line per ny and writes them to FILE (default
-out_profile/profile_torch_cross.json; out_*/ is gitignored). Needs a
-CUDA device and nvcc.
+For the port under DIR (default: this checkout; the tree of another
+commit, unpacked with ``git archive`` into a gitignored directory, times
+that commit's B6 through its own wrapper and build), at the decoder's
+[16, 576, 512], 16 heads, over ny 3, 1 and 8, and at [16, 576, 768], 12
+heads (head dim 64, the widest rows the one-kernel design takes), ny 3
+(bf16, N(0, 1) activations, 0.05 N(0, 1) weights, as
+``chip_smoke.cross_phase`` makes them, from the same seed whatever the
+tree), it reports per shape the call's device ms, graph-replayed
+(``chip_smoke.graph_ms``), its max|d| against the tree's
+``cross_block_plain``, and the tree's launch plan where its wrapper
+reports one. One tree a process: to compare two commits, run parent,
+this, this, parent in one session on the card. Prints one JSON line per
+shape and writes them to FILE (default out_profile/profile_torch_cross.json;
+out_*/ is gitignored). Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
-import importlib
 import importlib.util
 import json
-import subprocess
 import sys
 from pathlib import Path
 
-import numpy as np
-
 ROOT = Path(__file__).resolve().parent.parent
-B, N, C, H = 16, 576, 512, 16
-NYS = (3, 1, 8)
-PHASES = ("x_in_and_ln", "q_products", "attention_share", "proj_and_epilogue")
+SHAPES = ((16, 576, 512, 16, 3), (16, 576, 512, 16, 1), (16, 576, 512, 16, 8),
+          (16, 576, 768, 12, 3))
 
 
 def load_smoke():
+    """This checkout's chip_smoke.py, whatever tree is timed."""
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     return smoke
 
 
-def port_entry(tree: Path):
-    """``fused_cross_attention_block`` of the port under ``tree``, imported
-    afresh (its own build directory and libraries)."""
-    for name in [m for m in sys.modules if m.startswith("countr_tpu_torch")]:
-        del sys.modules[name]
-    sys.path.insert(0, str(tree))
-    try:
-        module = importlib.import_module("countr_tpu_torch.ops.fused_cross")
-    finally:
-        sys.path.remove(str(tree))
-    return module.fused_cross_attention_block
-
-
-def trace_library(out_dir: Path):
-    """This checkout's cross_block.cu built with -DCROSS_BLOCK_TRACE."""
-    from countr_tpu_torch.ops.cuda_build import NVCC_FLAGS, _nvcc
-
-    out_dir.mkdir(parents=True, exist_ok=True)
-    so = out_dir / "libcross_block_trace.so"
-    src = ROOT / "countr_tpu_torch" / "csrc" / "cross_block.cu"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-DCROSS_BLOCK_TRACE", "-o", str(so), str(src)],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
-    lib = ctypes.CDLL(str(so))
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.cross_block_forward.argtypes = [vp] * 10 + [ci] * 5 + [cf, cf, vp]
-    lib.cross_block_forward.restype = ci
-    lib.cross_block_trace.argtypes = [vp]
-    lib.cross_block_trace.restype = ci
-    lib.cross_block_plan.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
-    lib.cross_block_plan.restype = ci
-    return lib
-
-
-def phases(torch, lib, args, ny: int) -> dict:
-    """One traced launch (after three untraced ones): each phase's mean
-    and largest microseconds over the blocks, and the span."""
-    plan = (ctypes.c_int * 5)()
-    assert lib.cross_block_plan(B * N, C, H, plan) == 0
-    blocks = plan[3]
-    y = torch.empty_like(args[0])
-    ptrs = [a.data_ptr() for a in args]
-    for _ in range(4):
-        rc = lib.cross_block_forward(*ptrs, y.data_ptr(), B, N, C, H, ny, 1e-6,
-                                     (C // H) ** -0.5 * 1.4426950408889634,
-                                     torch.cuda.current_stream().cuda_stream)
-        assert rc == 0, rc
-    torch.cuda.synchronize()
-    buf = (ctypes.c_ulonglong * (160 * 8))()
-    assert lib.cross_block_trace(buf) == 0
-    marks = np.array(list(buf), dtype=np.float64).reshape(160, 8)[:min(blocks, 160)]
-    cols = marks[:, [0, 2, 3, 4, 5]]  # start, LN done, q done, attention done, end
-    d = np.diff(cols, axis=1) / 1e3
-    return {"blocks": blocks, "rows_per_block": plan[4],
-            "phase_us_mean": dict(zip(PHASES, d.mean(0).tolist())),
-            "phase_us_max": dict(zip(PHASES, d.max(0).tolist())),
-            "span_us": float((cols[:, 4].max() - cols[:, 0].min()) / 1e3)}
-
-
 def main() -> int:
+    import numpy as np
     import torch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--tree", default=None)
+    ap.add_argument("--tree", default=str(ROOT))
     ap.add_argument("--out", default="out_profile/profile_torch_cross.json")
-    opts = ap.parse_args()
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_cross: no CUDA device", file=sys.stderr)
         return 1
-    smoke = load_smoke()
-    dev = torch.device("cuda")
-    this = port_entry(ROOT)
+    tree = Path(args.tree).resolve()
+    sys.path.insert(0, str(tree))
     from countr_tpu_torch.bench import smi_line
-    from countr_tpu_torch.ops.fused_cross import cross_block_plain
+    from countr_tpu_torch.ops import fused_cross
 
-    other = port_entry(Path(opts.tree).resolve()) if opts.tree else None
-    lib = trace_library(ROOT / "out_profile")
+    smoke = load_smoke()
+    plan = getattr(fused_cross, "plan", None)
+    dev = torch.device("cuda")
     lines = []
-    for ny in NYS:
+    for b, n, c, h, ny in SHAPES:
         rng = np.random.default_rng(8)
-        f32 = torch.float32
-        xs = [smoke.randn_on(torch, rng, dev, (B, N, C)) for _ in range(4)]
-        k, v = (smoke.randn_on(torch, rng, dev, (B, ny, C)) for _ in range(2))
-        lns = smoke.randn_on(torch, rng, dev, (C,), 0.05, 1.0, f32)
-        lnb = smoke.randn_on(torch, rng, dev, (C,), 0.05, 0.0, f32)
+        xs = [smoke.randn_on(torch, rng, dev, (b, n, c)) for _ in range(4)]
+        k, v = (smoke.randn_on(torch, rng, dev, (b, ny, c)) for _ in range(2))
+        lns = smoke.randn_on(torch, rng, dev, (c,), 0.05, 1.0, torch.float32)
+        lnb = smoke.randn_on(torch, rng, dev, (c,), 0.05, 0.0, torch.float32)
         wq, bq, wp, bp = (smoke.randn_on(torch, rng, dev, s, 0.05)
-                          for s in ((C, C), (C,), (C, C), (C,)))
-        rest = (lns, lnb, wq, bq, k, v, wp, bp)
-        arg_sets = [(x,) for x in xs]
+                          for s in ((c, c), (c,), (c, c), (c,)))
+        rest = (lns, lnb, wq, bq, k, v, wp, bp, h, 1e-6)
 
-        def timed(entry):
-            return smoke.graph_ms(torch, lambda x: entry(x, *rest, H, 1e-6), arg_sets)
+        def kernel(x):
+            return fused_cross.fused_cross_attention_block(x, *rest)
 
-        got = this(xs[0], *rest, H, 1e-6)
-        want = cross_block_plain(xs[0], *rest, H, 1e-6)
-        line = {"ny": ny, "shape": [B, N, C, H], "max_abs_err": smoke.max_abs(got, want)}
-        if other is None:
-            line["ms"] = timed(this)
-        else:
-            runs = [timed(other), timed(this), timed(this), timed(other)]
-            line.update(ms=(runs[1] + runs[2]) / 2, tree_ms=(runs[0] + runs[3]) / 2,
-                        turns_ms=runs, tree=opts.tree)
-        line.update(phases(torch, lib, (xs[0], lns, lnb, wq, bq, k, v, wp, bp), ny))
-        line["nvidia_smi"] = smi_line()
-        print(json.dumps(line), flush=True)
+        err = smoke.max_abs(kernel(xs[0]), fused_cross.cross_block_plain(xs[0], *rest))
+        line = dict(tree=str(tree), shape=[b, n, c, h], ny=ny, max_abs_err=err,
+                    ms=smoke.graph_ms(torch, kernel, [(x,) for x in xs]),
+                    plan=plan(b * n, c, h) if plan else None, card=smi_line())
         lines.append(line)
-    out = Path(opts.out)
+        print(json.dumps(line), flush=True)
+    out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text("\n".join(json.dumps(x) for x in lines) + "\n")
     return 0

@@ -392,6 +392,10 @@ def test_fused_mlp_and_cross_refuse_fp32_and_malformed_input(cuda_device):
         fused_cross_attention_block(*args[:6], args[6][:, :2].contiguous(), *args[7:], 4)
     with pytest.raises(ValueError, match="heads"):
         fused_cross_attention_block(*args, 5)
+    # rows wider than LN(x) and att can keep resident in shared memory
+    wide = _cross_args(rng, cuda_device, 1, 16, 1024, 3)
+    with pytest.raises(ValueError, match="C <= 768"):
+        fused_cross_attention_block(*wide, 16)
 
 
 # (M, N, K, epilogue): every product of the paths at 16 windows (B2's qkv
