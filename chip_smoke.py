@@ -26,7 +26,8 @@ Phases, one line each on stdout:
      PyTorch library call or composition as a yardstick, beside the
      card's bound for the same work; B3/B4 also at the MAE encoder's
      N = 288 and the MAE decoder's [16, 576, 512], B3 also at B2's
-     encoder shape [16, 576, 768] (B4's yardstick: SDPA forward +
+     encoder shape [16, 576, 768], B6 also at C 768, 1024, 1280 and 2048
+     with its launch plan per width (B4's yardstick: SDPA forward +
      backward graph-replayed, less SDPA's forward; B4's line also gives
      each of its two passes' device ms, from torch.profiler), with a
      `core` line per shape: how the attention core runs there (route,
@@ -694,29 +695,38 @@ def kernels_per_call(torch, fn) -> list:
     return [{"kernel": r["kernel"], "calls": r["calls"]} for r in rows]
 
 
+# B6's wider rows, 16 windows of 576 tokens at ny 3: C 768 (12 heads of
+# 64), 1024 (16 of 64), 1280 (5 of 256: a cluster splits them 3 / 2) and
+# 2048 (16 of 128), the widths past the decoder's that B2 and B5 take
+CROSS_WIDE = ((768, 12), (1024, 16), (1280, 5), (2048, 16))
+
+
 def cross_phase(torch, dev, ab: dict):
     """B6 at scripts/ab_cross_block.py's decoder geometry, 16 windows:
     [16, 576, 512], 16 heads, over ny 3 (three exemplars), ny 1 (zero
-    shot: the shot token) and ny 8 (the most the kernel takes). No model
-    path runs it (as in the JAX package): the checked calls at the A/B
-    geometries (ny 3 and 1) are the "ab" path's, counted into ``ab``;
-    ny 8's is checked beside them. Each line gives the device
-    kernels of one call (torch.profiler: 1, where the earlier four-launch
-    design ran 4) and, under ``bytes_estimate``, the device-memory bytes
-    the design and the bound count from the shapes (arithmetic, not a
-    counter reading: the profiler here reads no DRAM counter). Those
-    counts stay on this line, out of the shapes the kernels entry
-    carries."""
+    shot: the shot token) and ny 8 (the most the kernel takes); then at
+    ny 3 at each width of ``CROSS_WIDE``. No model path runs it (as in
+    the JAX package): the checked calls at the A/B geometries (ny 3 and
+    1) are the "ab" path's, counted into ``ab``; the others are checked
+    beside them. Each line gives the launch plan (``fused_cross.plan``:
+    tile rows, ring stages, LN(x) resident or streamed, blocks per
+    cluster), the device kernels of one call (torch.profiler: 1, where
+    the earlier four-launch design ran 4) and, under ``bytes_estimate``,
+    the device-memory bytes the design and the bound count from the
+    shapes (arithmetic, not a counter reading: the profiler here reads no
+    DRAM counter). Those counts stay on this line, out of the shapes the
+    kernels entry carries."""
     import torch.nn.functional as F
     from countr_tpu_torch.ops.fused_cross import (cross_block_plain, fused_cross_attention_block,
                                                   plan)
 
     rng = np.random.default_rng(8)
     f32 = torch.float32
-    b, n, c, h = WINDOWS, 576, 512, 16
-    hd = c // h
+    b, n = WINDOWS, 576
     shapes = []
-    for ny in (3, 1, 8):
+    for c, h, ny in ((512, 16, 3), (512, 16, 1), (512, 16, 8),
+                     *((c, h, 3) for c, h in CROSS_WIDE)):
+        hd = c // h
         xs = [randn_on(torch, rng, dev, (b, n, c)) for _ in range(4)]
         k, v = (randn_on(torch, rng, dev, (b, ny, c)) for _ in range(2))
         lns = randn_on(torch, rng, dev, (c,), 0.05, 1.0, f32)
@@ -738,13 +748,13 @@ def cross_phase(torch, dev, ab: dict):
             att = torch.einsum("bqhk,bkhd->bqhd", p, vh).reshape(b, n, c)
             return x + F.linear(att, wp, bp)
 
-        if ny in AB_CROSS_NY:
+        if c == 512 and ny in AB_CROSS_NY:
             got = ab_call(torch, lambda: kernel(xs[0]), "B6", ab)
         else:
             n0 = fused_cross_attention_block.launches
             got = kernel(xs[0])
             if fused_cross_attention_block.launches != n0 + 1:
-                raise AssertionError(f"B6 ny {ny}: the call did not launch the kernel")
+                raise AssertionError(f"B6 C {c} ny {ny}: the call did not launch the kernel")
         want = plain(xs[0])
         err = max_abs(got, want)
         lim = BLOCK_TOL * max(1.0, float(want.float().abs().max()))
@@ -752,7 +762,7 @@ def cross_phase(torch, dev, ab: dict):
             raise AssertionError(f"B6 [{b},{n},{c}]x{h} ny {ny} max|d| {err} > {lim}")
         launched = kernels_per_call(torch, lambda: kernel(xs[0]))
         if sum(r["calls"] for r in launched) != 1:
-            raise AssertionError(f"B6 ny {ny}: one call ran {launched}, not one kernel")
+            raise AssertionError(f"B6 C {c} ny {ny}: one call ran {launched}, not one kernel")
         m = b * n
         flops = 4 * m * c * c + 4 * m * ny * c
         # the bound's bytes: x in, y out, k and v, the weights, biases, LN
@@ -768,13 +778,22 @@ def cross_phase(torch, dev, ab: dict):
             bound_ms=bm, bound_by=bb, gflop=flops / 1e9, device_kernels_per_call=launched))
         # Counted from the shapes, not measured. The design reads x twice
         # (LN, then the residual, which is likely still in L2; counted here
-        # as a second read) and each weight once (every block streams both
-        # weights, 2·C² bf16 a tile, so the rest of that traffic is L2's);
-        # the four-launch design also wrote and read back LN(x), q and att.
+        # as a second read) and each weight once (every tile streams both
+        # weights, 2·C² bf16, so the rest of that traffic is L2's; in a
+        # cluster each block streams its half); with LN(x) streamed each
+        # block also reads its tile's x again for every 128-column N-slice
+        # of the q product (L2's, counted apart); the four-launch design
+        # also wrote and read back LN(x), q and att.
+        pl = plan(m, c, h)
+        tiles = pl["blocks"] // pl["cluster"]
+        cs = pl["split_col"]
+        slices = -(-cs // 128) + (-(-(c - cs) // 128) if pl["cluster"] == 2 else 0)
         estimate = dict(source="arithmetic from the shapes; no counter read",
                         bound=bound_bytes, design=bound_bytes + m * c * 2,
                         four_launch_design=bound_bytes + 6 * m * c * 2,
-                        l2_weight_stream=plan(m, c, h)["blocks"] * 2 * c * c * 2)
+                        l2_weight_stream=tiles * 2 * c * c * 2,
+                        l2_x_restream=m * c * 2 * slices if pl["ln"] == "streamed" else 0)
+        shapes[-1]["plan"] = pl
         say("kernel", name="B6 fused_cross_attention_block", **shapes[-1],
             bytes_estimate=estimate)
     return shapes
@@ -3463,11 +3482,15 @@ def main() -> int:
         entry("B5 fused_mlp_block", "cuda", "countr_tpu_torch/csrc/mlp_block.cu",
               "countr_tpu/ops/pallas_block.py:214", "ab", b5_shapes, redesigned_in=4),
         entry("B6 fused_cross_attention_block", "cuda", "countr_tpu_torch/csrc/cross_block.cu",
-              "countr_tpu/ops/pallas_block.py:398", "ab", b6_shapes, redesigned_in=15,
-              design="one kernel a call, one block a tile of up to 72 rows (132 tiles at "
-                     "the decoder's shape: one wave): LN, q and att in shared memory, "
-                     "rows 0-63 by wgmma and 64-71 by mma.sync on the same TMA weight "
-                     "stages, the small-k attention on its own warps",
+              "countr_tpu/ops/pallas_block.py:398", "ab", b6_shapes, redesigned_in=15, widened_in=16,
+              design="one kernel a call at every C <= 2048, one block a tile of up to 72 "
+                     "rows (132 tiles at the decoder's shape: one wave): q and att in "
+                     "shared memory, LN(x) resident where it fits in one wave (C 512), "
+                     "else streamed by K-chunks with the weight's stages; past C 1280 a "
+                     "2-block cluster a tile, each block the att of half the heads, the "
+                     "peer's read through distributed shared memory; rows 0-63 by wgmma "
+                     "and 64-71 by mma.sync on the same TMA weight stages, the small-k "
+                     "attention on its own warps",
               device_kernels_per_call=sum(r["calls"] for r in
                                           b6_shapes[0]["device_kernels_per_call"])),
     ]}), flush=True)

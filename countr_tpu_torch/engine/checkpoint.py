@@ -141,10 +141,43 @@ def mae_state_dict_from_flax(
     return sd
 
 
+def _fetch_if_url(path: str) -> str:
+    """An ``http://``, ``https://`` or ``file://`` checkpoint URL fetched
+    once into ``~/.cache/countr_tpu_torch/ckpts/`` (the reference loads
+    such resume paths through torch.hub, util/misc.py:340-342), named
+    ``sha1(url)[:16] + "_" + basename``; the local path of the cached
+    file. Local paths pass through untouched. Each process downloads to a
+    temporary file of its own in the cache and renames it into place, so
+    concurrent fetchers never read a partial file; on any failure the
+    temporary file is removed."""
+    if not path.startswith(("http://", "https://", "file://")):
+        return path
+    import hashlib
+    import tempfile
+    import urllib.request
+
+    cache = os.path.expanduser("~/.cache/countr_tpu_torch/ckpts")
+    os.makedirs(cache, exist_ok=True)
+    name = hashlib.sha1(path.encode()).hexdigest()[:16] + "_" + os.path.basename(path)
+    dest = os.path.join(cache, name)
+    if not os.path.exists(dest):
+        fd, tmp = tempfile.mkstemp(dir=cache, suffix=".part")
+        os.close(fd)
+        try:
+            urllib.request.urlretrieve(path, tmp)
+            os.replace(tmp, dest)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return dest
+
+
 def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     """A reference ``.pth`` ({'model': state_dict, ...} or a bare
-    state_dict) -> its model state_dict as fp32 CPU tensors."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    state_dict) -> its model state_dict as fp32 CPU tensors. ``path`` may
+    be an ``http://``, ``https://`` or ``file://`` URL, fetched to a local
+    cache first (``_fetch_if_url``)."""
+    ckpt = torch.load(_fetch_if_url(path), map_location="cpu", weights_only=False)
     sd = ckpt.get("model", ckpt) if isinstance(ckpt, dict) else ckpt
     return {k: v.detach().float() for k, v in sd.items()}
 

@@ -20,8 +20,12 @@ paths and at ragged M, N and K: max|d| <= 2^-5 * max(1, max|ref|), the
 limit of B5, whose products it runs, and of B6 (kernel and plain version
 round at the same points and sum in another order). B6, one kernel a
 call, also at 64-row tiles that straddle batch elements, a single
-partial tile and M not a multiple of 64; it gives the same bits on two
-calls and replayed from a CUDA graph. B2 and B3 also at
+partial tile and M not a multiple of 64, and at every width up to
+C 2048 (LN(x) streamed; past C 1280 a 2-block cluster a tile, also with
+an odd head count); it gives the same bits on two calls and replayed
+from a CUDA graph on each launch plan, and its plans (resident or
+streamed LN(x), one block or a cluster a tile) give the same bits where
+a shape fits several. B2 and B3 also at
 N = 1, 577 and 641, where the attention core holds K and V in shared
 memory, and B3 at N = 832 and 833 at head dim 64, the last N it holds
 and the first past it (the two-pass route). B3 and B4 also on logits
@@ -284,7 +288,14 @@ CROSS_SHAPES = [(16, 576, 512, 16, 3), (16, 576, 512, 16, 1), (2, 37, 96, 3, 8),
                 (3, 100, 64, 4, 5), (2, 70, 256, 2, 2), (2, 37, 64, 8, 2),
                 (2, 50, 768, 12, 3), (2, 33, 512, 2, 4), (3, 100, 512, 16, 8),
                 (1, 5, 512, 16, 2), (2, 45, 768, 12, 3), (16, 576, 512, 2, 3),
-                (2, 4400, 96, 3, 8), (2, 4400, 96, 12, 3), (2, 4225, 64, 4, 2)]
+                (2, 4400, 96, 3, 8), (2, 4400, 96, 12, 3), (2, 4225, 64, 4, 2),
+                # the widths past 768: LN(x) streamed by K-chunks; 13 heads
+                # of 64; C 1280 in 5 heads of 256 (a cluster splits them 3
+                # / 2); over 132 tiles; a partial tile at C 2048
+                (2, 33, 832, 13, 4), (2, 45, 1024, 16, 3), (16, 576, 1024, 16, 3),
+                (1, 5, 1280, 5, 2), (16, 576, 1280, 5, 3), (2, 45, 1536, 24, 3),
+                (16, 576, 2048, 16, 3), (4, 2300, 2048, 16, 8), (2, 45, 2048, 8, 8),
+                (2, 45, 2048, 16, 1)]
 
 
 def _cross_args(rng, dev, b, n, c, ny):
@@ -311,30 +322,42 @@ def test_fused_cross_matches_plain(cuda_device, b, n, c, h, ny):
     assert float((got.float() - want.float()).abs().max()) <= lim
 
 
-@pytest.mark.parametrize("b,n,c,h,ny", [(16, 576, 512, 16, 3), (3, 100, 512, 16, 8)])
-def test_fused_cross_is_deterministic(cuda_device, b, n, c, h, ny):
+# a shape on each launch plan (fused_cross.plan): resident LN(x) (the
+# decoder's, 72-row tiles; 64-row tiles), streamed LN(x) one block a tile
+# (72-row tiles at C 1024; 64-row tiles at C 768), a 2-block cluster a
+# tile (C 2048, 72-row tiles; a partial tile)
+CROSS_PLAN_SHAPES = [(16, 576, 512, 16, 3, "auto"), (3, 100, 512, 16, 8, "auto"),
+                     (16, 576, 1024, 16, 3, "auto"), (2, 50, 768, 12, 3, "streamed"),
+                     (16, 576, 2048, 16, 3, "auto"), (2, 45, 2048, 16, 8, "auto")]
+
+
+@pytest.mark.parametrize("b,n,c,h,ny,plan", CROSS_PLAN_SHAPES)
+def test_fused_cross_is_deterministic(cuda_device, b, n, c, h, ny, plan):
     rng = np.random.default_rng(11)
     args = _cross_args(rng, cuda_device, b, n, c, ny)
-    first = fused_cross_attention_block(*args, h, 1e-6)
-    second = fused_cross_attention_block(*args, h, 1e-6)
+    kw = dict(plan=plan)
+    first = fused_cross_attention_block(*args, h, 1e-6, **kw)
+    second = fused_cross_attention_block(*args, h, 1e-6, **kw)
     assert torch.equal(first, second)
 
 
-def test_fused_cross_graphed_equals_eager(cuda_device):
+@pytest.mark.parametrize("b,n,c,h,ny,plan", [CROSS_PLAN_SHAPES[i] for i in (0, 2, 3, 4)])
+def test_fused_cross_graphed_equals_eager(cuda_device, b, n, c, h, ny, plan):
     """A call captured in a CUDA graph (after an eager warm-up, which
     sets the kernel's attributes) and replayed gives the eager call's
     bits, on the captured inputs and on new values copied into them."""
     rng = np.random.default_rng(12)
-    args = _cross_args(rng, cuda_device, 16, 576, 512, 3)
-    eager = fused_cross_attention_block(*args, 16, 1e-6)
+    args = _cross_args(rng, cuda_device, b, n, c, ny)
+    kw = dict(plan=plan)
+    eager = fused_cross_attention_block(*args, h, 1e-6, **kw)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.stream(side):
-        fused_cross_attention_block(*args, 16, 1e-6)
+        fused_cross_attention_block(*args, h, 1e-6, **kw)
         n0 = fused_cross_attention_block.launches
         with torch.cuda.graph(graph, stream=side):
-            out = fused_cross_attention_block(*args, 16, 1e-6)
+            out = fused_cross_attention_block(*args, h, 1e-6, **kw)
     torch.cuda.current_stream().wait_stream(side)
     assert fused_cross_attention_block.launches == n0 + 1
     graph.replay()
@@ -344,7 +367,36 @@ def test_fused_cross_graphed_equals_eager(cuda_device):
     args[0].copy_(x2)
     graph.replay()
     torch.cuda.synchronize()
-    assert torch.equal(out, fused_cross_attention_block(*args, 16, 1e-6))
+    assert torch.equal(out, fused_cross_attention_block(*args, h, 1e-6, **kw))
+
+
+@pytest.mark.parametrize("b,n,c,h,ny,plans", [
+    (16, 576, 512, 16, 3, ("resident", "streamed", "cluster")),
+    (2, 50, 768, 12, 3, ("resident", "streamed", "cluster")),
+    (2, 4400, 96, 3, 8, ("resident", "streamed", "cluster")),
+    (2, 70, 256, 2, 2, ("resident", "streamed", "cluster")),
+    (16, 576, 1024, 16, 3, ("streamed", "cluster")),
+    (2, 33, 832, 13, 4, ("streamed", "cluster")),
+    (1, 5, 1280, 5, 2, ("streamed", "cluster"))])
+def test_fused_cross_plans_give_the_same_bits(cuda_device, b, n, c, h, ny, plans):
+    """Every plan rounds at the same points and sums each output in the
+    same order, so where a shape fits several they agree to the bit (LN(x)
+    resident or streamed; one block or a cluster a tile); the plan that
+    does not fit a shape raises ValueError."""
+    from countr_tpu_torch.ops.fused_cross import plan
+
+    rng = np.random.default_rng(13)
+    args = _cross_args(rng, cuda_device, b, n, c, ny)
+    outs = [fused_cross_attention_block(*args, h, 1e-6, plan=p) for p in plans]
+    for p, out in zip(plans[1:], outs[1:]):
+        assert torch.equal(out, outs[0]), p
+    infos = [plan(b * n, c, h, p) for p in plans]
+    assert [i["ln"] for i in infos] == ["resident" if p == "resident" else "streamed"
+                                        for p in plans]
+    assert infos[-1]["cluster"] == 2
+    if "resident" not in plans:
+        with pytest.raises(ValueError, match="no resident plan"):
+            fused_cross_attention_block(*args, h, 1e-6, plan="resident")
 
 
 def test_fused_cross_takes_plain_route_above_8_tokens(cuda_device):
@@ -392,10 +444,10 @@ def test_fused_mlp_and_cross_refuse_fp32_and_malformed_input(cuda_device):
         fused_cross_attention_block(*args[:6], args[6][:, :2].contiguous(), *args[7:], 4)
     with pytest.raises(ValueError, match="heads"):
         fused_cross_attention_block(*args, 5)
-    # rows wider than LN(x) and att can keep resident in shared memory
-    wide = _cross_args(rng, cuda_device, 1, 16, 1024, 3)
-    with pytest.raises(ValueError, match="C <= 768"):
-        fused_cross_attention_block(*wide, 16)
+    # rows wider than B2 and B5 take
+    wide = _cross_args(rng, cuda_device, 1, 16, 2056, 3)
+    with pytest.raises(ValueError, match="C <= 2048"):
+        fused_cross_attention_block(*wide, 8)
 
 
 # (M, N, K, epilogue): every product of the paths at 16 windows (B2's qkv
