@@ -1,0 +1,9 @@
+"""Per cent of kernel B2's roofline on the counting path: the least time
+its launches' shapes allow (`work/kernels/b2.py`) over its device time
+in the trace."""
+
+from benchmark.lib.readers import roofline
+
+
+def read(layer):
+    return roofline(layer, "B2")

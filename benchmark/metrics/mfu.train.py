@@ -1,0 +1,9 @@
+"""Per cent of the H100's bf16 dense peak (989 TFLOP/s): the reference
+architecture's operations (`work/models/`) for the work the window did
+outside its traced stretch, over those seconds by the host's clock."""
+
+from benchmark.lib.readers import mfu
+
+
+def read(layer):
+    return mfu(layer)
