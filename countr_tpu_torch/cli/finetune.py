@@ -58,6 +58,7 @@ from countr_tpu_torch.cli import common
 from countr_tpu_torch.config import TrainConfig
 from countr_tpu_torch.parallel.dist import rank0_print
 from countr_tpu_torch.utils.metrics import JsonlLogger, TBWriter
+from countr_tpu_torch.utils.profiling import span
 
 
 def get_args(argv=None):
@@ -450,12 +451,13 @@ class Finetune:
                 raise SystemExit(f"Loss is not finite at epoch {epoch}")
             if args.log_every and n_steps % args.log_every == 0 and self.main:
                 # the per-step scalars (reference: FSC_finetune_cross.py:320-326)
-                gstep = epoch * self.steps_per_epoch + n_steps
-                rec = {"train/loss_step": float(m["loss"]),
-                       "train/lr_step": float(self.state.schedule(gstep))}
-                self.wandb.log(rec, step=gstep)
-                for k, v in rec.items():
-                    self.tb.scalar(k, v, gstep)
+                with span("train.log"):
+                    gstep = epoch * self.steps_per_epoch + n_steps
+                    rec = {"train/loss_step": float(m["loss"]),
+                           "train/lr_step": float(self.state.schedule(gstep))}
+                    self.wandb.log(rec, step=gstep)
+                    for k, v in rec.items():
+                        self.tb.scalar(k, v, gstep)
         sums = {k: float(v) for k, v in totals.items()} if totals else {}
         return {"loss": sums.get("loss", 0.0), "mae": sums.get("mae", 0.0),
                 "mse": sums.get("mse", 0.0), "steps": n_steps}

@@ -45,6 +45,7 @@ from countr_tpu_torch.cli.finetune import N_DEVICES_HELP, epoch_seed
 from countr_tpu_torch.config import TrainConfig
 from countr_tpu_torch.parallel.dist import rank0_print
 from countr_tpu_torch.utils.metrics import JsonlLogger, TBWriter
+from countr_tpu_torch.utils.profiling import span
 
 
 def get_args(argv=None):
@@ -254,11 +255,12 @@ class Pretrain:
             m = self.train_step(self._inputs(batch))
             gstep += 1
             if args.log_every and gstep % args.log_every == 0 and self.main:
-                loss, lr = float(m["loss"]), float(self.state.schedule(gstep))
-                self.wandb.log({"train/loss_step": loss, "train/lr_step": lr}, step=gstep)
-                self.tb.scalar("train/loss_step", loss, gstep)
-                self.tb.scalar("train/lr_step", lr, gstep)
-                print(f"[step {gstep}] loss {loss:.4f} lr {lr:.3e}", flush=True)
+                with span("train.log"):
+                    loss, lr = float(m["loss"]), float(self.state.schedule(gstep))
+                    self.wandb.log({"train/loss_step": loss, "train/lr_step": lr}, step=gstep)
+                    self.tb.scalar("train/loss_step", loss, gstep)
+                    self.tb.scalar("train/lr_step", lr, gstep)
+                    print(f"[step {gstep}] loss {loss:.4f} lr {lr:.3e}", flush=True)
             if args.recon_every and gstep % args.recon_every == 0 and self.tb.enabled:
                 self._log_reconstruction(batch, gstep)
             yield m

@@ -29,6 +29,8 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
+from countr_tpu_torch.utils.profiling import span
+
 _STACK_KEYS = (
     "image", "gt_density", "boxes",
     # device-augmentation geometry samples (TrainDataset(device_aug=True))
@@ -257,7 +259,8 @@ def device_prefetch(it: Iterator[Dict], device=None, keys: Optional[Sequence[str
         source = _chain(first, it)
         try:
             for batch in source:
-                staged = stage(batch)
+                with span("data.stage"):
+                    staged = stage(batch)
                 if staged is None or not put(staged):
                     return
         except BaseException as e:  # handed to the consumer, raised there
@@ -278,7 +281,8 @@ def device_prefetch(it: Iterator[Dict], device=None, keys: Optional[Sequence[str
                 i, ev = inflight.popleft()
                 ev.synchronize()
                 free.put(i)
-            item = filled.get()
+            with span("data.next"):
+                item = filled.get()
             if item is _END:
                 return
             if isinstance(item, _Failure):

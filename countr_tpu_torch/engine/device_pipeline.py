@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from countr_tpu_torch.config import DENSITY_SCALE, TTN_THRESHOLD, WINDOW
+from countr_tpu_torch.utils.profiling import span
 
 WIDTH_BUCKETS = (384, 448, 512, 576, 640, 768, 1024, 1536, 2304, 4608)
 MAP_KEYS = ("ix0", "ix1", "wx1", "iy0", "iy1", "wy1")
@@ -194,9 +195,11 @@ def stitch_set(forward, images, y_all, plan: dict, dev: dict, n_den_rows: int,
         owners = dev["img_owner"][i:j]
         if bk > j - i:
             owners = torch.cat([owners, owners.new_zeros(bk - (j - i))])
-        dens = forward(_chunk_windows(images, plan, dev, i, j, bk), y_all[owners])
-        accumulate(density, dens, plan["den_owner"][i:j], plan["den_start"][i:j],
-                   dev["wcol"][i:j])
+        with span("count.forward"):
+            dens = forward(_chunk_windows(images, plan, dev, i, j, bk), y_all[owners])
+        with span("count.stitch"):
+            accumulate(density, dens, plan["den_owner"][i:j], plan["den_start"][i:j],
+                       dev["wcol"][i:j])
     return density
 
 
@@ -315,17 +318,18 @@ class DevicePipeline:
         staged in pinned memory and copied without blocking the host; the
         pinned buffers are held until an event after their copies has
         completed."""
-        ts = [torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray) else a
-              for a in arrays]
-        if self.device.type != "cuda":
-            return [t.to(self.device) for t in ts]
-        self._in_flight = [(ev, bufs) for ev, bufs in self._in_flight if not ev.query()]
-        pinned = [t.pin_memory() for t in ts]
-        out = [t.to(self.device, non_blocking=True) for t in pinned]
-        event = torch.cuda.Event()
-        event.record()
-        self._in_flight.append((event, pinned))
-        return out
+        with span("count.upload"):
+            ts = [torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray) else a
+                  for a in arrays]
+            if self.device.type != "cuda":
+                return [t.to(self.device) for t in ts]
+            self._in_flight = [(ev, bufs) for ev, bufs in self._in_flight if not ev.query()]
+            pinned = [t.pin_memory() for t in ts]
+            out = [t.to(self.device, non_blocking=True) for t in pinned]
+            event = torch.cuda.Event()
+            event.record()
+            self._in_flight.append((event, pinned))
+            return out
 
     @torch.inference_mode()
     def run(
@@ -361,7 +365,8 @@ class DevicePipeline:
         dev = dict(zip(keys, arrays))
         density = stitch_set(self.forward, images, y_all, plan, dev, n_den_rows, den_width,
                              batch_windows, len(self.devices))
-        counts, esum = finalize(density, rects, valid)
+        with span("count.finalize"):
+            counts, esum = finalize(density, rects, valid)
         return counts, esum, (density if want_density else None)
 
 

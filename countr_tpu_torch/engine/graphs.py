@@ -50,6 +50,7 @@ import itertools
 import torch
 
 from countr_tpu_torch.ops.launches import KERNELS, launch_counts, set_launch_counts
+from countr_tpu_torch.utils.profiling import span
 
 WARMUP = 2
 
@@ -116,21 +117,22 @@ class GraphRunner:
             self._stream.wait_stream(current)
 
     def _capture(self, fn, inputs) -> _Graph:
-        static = [x.clone() for x in inputs]
-        self._warm_up(fn, static)
-        before = launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        for g in self._generators:
-            graph.register_generator_state(g)
-        try:
-            # relaxed: a kernel's first launch may set function attributes,
-            # which is not a stream operation (the warm-up made those launches)
-            with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
-                                  capture_error_mode="relaxed"):
-                output = fn(*static)
-            after = launch_counts()
-        finally:
-            set_launch_counts(before)
+        with span("graph.capture"):
+            static = [x.clone() for x in inputs]
+            self._warm_up(fn, static)
+            before = launch_counts()
+            graph = torch.cuda.CUDAGraph()
+            for g in self._generators:
+                graph.register_generator_state(g)
+            try:
+                # relaxed: a kernel's first launch may set function attributes,
+                # which is not a stream operation (the warm-up made those launches)
+                with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
+                                      capture_error_mode="relaxed"):
+                    output = fn(*static)
+                after = launch_counts()
+            finally:
+                set_launch_counts(before)
         return _Graph(graph, static, output, {k: after[k] - before[k] for k in KERNELS})
 
     def capture(self, key, fn, *inputs) -> None:
@@ -146,9 +148,10 @@ class GraphRunner:
         before the runner's next replay, of any key."""
         self.capture(key, fn, *inputs)
         g = self._graphs[key]
-        for buf, x in zip(g.inputs, inputs):
-            buf.copy_(x)
-        g.graph.replay()
+        with span("graph.replay"):
+            for buf, x in zip(g.inputs, inputs):
+                buf.copy_(x)
+            g.graph.replay()
         self.replays += 1
         for k, v in g.counts.items():
             self.launched[k] += v
@@ -170,9 +173,10 @@ class GraphedForward:
 
     @torch.inference_mode()
     def __call__(self, windows: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        sig = self._signature()
-        if sig != self._weights:
-            self.runner.reset()
-            self._weights = sig
+        with span("graph.check"):
+            sig = self._signature()
+            if sig != self._weights:
+                self.runner.reset()
+                self._weights = sig
         key = (tuple(windows.shape), windows.dtype, tuple(y.shape), y.dtype)
         return self.runner(key, self.model.forward_tokens, windows, y)

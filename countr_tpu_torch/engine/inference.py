@@ -46,6 +46,7 @@ from countr_tpu_torch.engine.stitch import (
     grid_crop_boxes, resample_maps, stitch, stitch_weights, window_starts,
 )
 from countr_tpu_torch.models.countr import CounTR
+from countr_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -304,14 +305,18 @@ class CountingEngine:
             if img.shape[0] != WINDOW:
                 raise ValueError(f"engine expects H={WINDOW} rows; got {img.shape}")
         results: List[Optional[CountResult]] = [None] * len(images)
-        # Every set is dispatched before any is read back, so the host
-        # plans and uploads a set while the device runs the previous one.
-        pending = [
-            self._dispatch_set(idxs, images, boxes_list, rects_list, shot_num, return_density)
-            for idxs in self.plan_batch_sets(images, rects_list)
-        ]
-        for handle in pending:
-            self._collect_set(handle, return_density, results)
+        with span("count.batch"):
+            with span("count.plan_sets"):
+                sets = self.plan_batch_sets(images, rects_list)
+            # Every set is dispatched before any is read back, so the host
+            # plans and uploads a set while the device runs the previous one.
+            pending = [
+                self._dispatch_set(idxs, images, boxes_list, rects_list, shot_num, return_density)
+                for idxs in sets
+            ]
+            for handle in pending:
+                with span("count.collect"):
+                    self._collect_set(handle, return_density, results)
         return results  # type: ignore[return-value]
 
     def plan_batch_sets(self, images, rects_list) -> List[List[int]]:
@@ -518,12 +523,14 @@ class CountingEngine:
         }
 
     def _dispatch_set(self, idxs, images, boxes_list, rects_list, shot_num, return_density):
-        sp = self._plan_set(idxs, images, boxes_list, rects_list, shot_num)
+        with span("count.plan_set"):
+            sp = self._plan_set(idxs, images, boxes_list, rects_list, shot_num)
         plan = sp["plan"]
         # the set's exemplar tokens in one batched CNN call, at the
         # upload-row bucket
         (bstack,) = self._pipeline.upload([sp["bstack"]])
-        y_img = self.model.encode_exemplars(bstack, shot_num)
+        with span("count.exemplars"):
+            y_img = self.model.encode_exemplars(bstack, shot_num)
         self.h2d_bytes += (
             sp["stackr"].nbytes + sp["bstack"].numel() * sp["bstack"].element_size()
             + sp["rects_arr"].nbytes + sp["rects_valid"].nbytes

@@ -40,6 +40,7 @@ from countr_tpu_torch.ops.augment import (
     augment_batch, density_from_dots, draw_photometric, photometric,
 )
 from countr_tpu_torch.parallel.mesh import rows_of
+from countr_tpu_torch.utils.profiling import span
 
 
 def decay_mask(model: nn.Module) -> Dict[str, bool]:
@@ -322,10 +323,11 @@ def _graphed_train_step(state: TrainState, device_step, generator, split):
         return key, functools.partial(device_step, update=update, **static), inputs
 
     def step(*args, **kw) -> Dict:
-        update = state.begin_step()
-        key, fn, inputs = graph(args, kw, update)
-        m = _replay(runner, key, fn, *inputs)
-        state.end_step(update)
+        with span("train.step"):
+            update = state.begin_step()
+            key, fn, inputs = graph(args, kw, update)
+            m = _replay(runner, key, fn, *inputs)
+            state.end_step(update)
         return m
 
     def capture(*args, **kw) -> None:
@@ -349,10 +351,11 @@ def _train_step(state: TrainState, device_step, generator, graphed, split):
         return _graphed_train_step(state, device_step, generator, split)
 
     def step(*args, **kw) -> Dict:
-        inputs, static = split(*args, **kw)
-        update = state.begin_step()
-        m = device_step(*inputs, update=update, **static)
-        state.end_step(update)
+        with span("train.step"):
+            inputs, static = split(*args, **kw)
+            update = state.begin_step()
+            m = device_step(*inputs, update=update, **static)
+            state.end_step(update)
         return m
 
     return step
