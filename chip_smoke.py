@@ -32,6 +32,16 @@ Phases, one line each on stdout:
      each of its two passes' device ms, from torch.profiler), with a
      `core` line per shape: how the attention core runs there (route,
      blocks launched, blocks per SM, shared bytes per block);
+  3b. adamw: the training state's fused AdamW update (ops/fused_adamw.py)
+     at mae_base's 251 trainable tensors (111,654,912 fp32): three
+     updates of the kernel against its plain version from the same state,
+     one eager update's launches (AdamW 1, nothing else), the kernels of
+     a whole update (the step count's add and the kernel), and the
+     graph-replayed ms of the kernel, its plain version, torch's
+     AdamW(fused=True, capturable=True) and the capturable foreach AdamW
+     the port ran before, beside the 28-byte-a-parameter bound. Every
+     training replay and eager step below that updates launches AdamW
+     once besides the counts it names;
   4. forward: full-width mae_vit_base6_patch16 in the bf16 fast mode,
      random weights from torch.Generator seed 0, 16 windows — the kernel
      path against the same model with every kernel swapped for its
@@ -250,7 +260,7 @@ FORWARD_REL_TOL = 2.2e-2  # docs/PARITY.md:235, times max(1, max|ref|)
 TRAIN_LOSS_REL_TOL = 2.2e-2
 GRAD_COSINE_MIN = 0.99
 # A training step replayed from its CUDA graph against the same step run
-# eagerly from the same start (the same capturable AdamW, the same kernels
+# eagerly from the same start (the same fused AdamW, the same kernels
 # in the same order): the same bits in every loss, weight and Adam tensor.
 GRAPHED_TOL = 0.0
 WINDOWS = 16
@@ -1023,7 +1033,7 @@ def count_phase(torch, model):
     if results[-1].n_windows != 36:
         raise AssertionError(f"grid image ran {results[-1].n_windows} windows, not 36")
     if launches != {"B1": 26 * batches, "B2": 18 * batches, "B3": 0, "B4": 0, "B5": 0,
-                    "B6": 0} or batches == 0:
+                    "B6": 0, "AdamW": 0} or batches == 0:
         raise AssertionError(f"launches {launches} for {batches} window batches")
     say("count_launches", window_batches=batches, **launches)
     return launches
@@ -1088,7 +1098,7 @@ def graph_phase(torch, engine):
         e_ms = events_ms(lambda: model.forward_tokens(imgs, y), iters=10)
     replays = graphed.runner.replays
     per_replay = {k: v / replays for k, v in graphed.runner.launched.items()}
-    if per_replay != {"B1": 26, "B2": 18, "B3": 0, "B4": 0, "B5": 0, "B6": 0}:
+    if per_replay != {"B1": 26, "B2": 18, "B3": 0, "B4": 0, "B5": 0, "B6": 0, "AdamW": 0}:
         raise AssertionError(f"graphed forward: launches per replay {per_replay}")
 
     saved = {k: v.clone() for k, v in model.state_dict().items()}
@@ -1141,7 +1151,8 @@ def count_batch_phase(torch, engine):
     expect_replays = sum(
         len(chunk_plan(sum(engine.windows_per_image(images[i].shape[1], rects[i])[1]
                            for i in idxs), engine.batch_windows)) for idxs in sets)
-    want = {"B1": 26 * replays, "B2": 18 * replays, "B3": 0, "B4": 0, "B5": 0, "B6": 0}
+    want = {"B1": 26 * replays, "B2": 18 * replays, "B3": 0, "B4": 0, "B5": 0, "B6": 0,
+            "AdamW": 0}
     if any(eager.values()) or graphed != want or replays != expect_replays or replays == 0:
         raise AssertionError(f"count_batch: eager launches {eager}, graph launches {graphed} "
                              f"over {replays} replays (expected {expect_replays})")
@@ -1216,7 +1227,7 @@ def per_replay(runner, what: str):
     eager = launch_counts()
     per = {k: v / max(runner.replays, 1) for k, v in runner.launched.items()}
     if any(eager.values()) or runner.replays == 0 or per != {
-            "B1": 26, "B2": 18, "B3": 0, "B4": 0, "B5": 0, "B6": 0}:
+            "B1": 26, "B2": 18, "B3": 0, "B4": 0, "B5": 0, "B6": 0, "AdamW": 0}:
         raise AssertionError(f"{what}: eager launches {eager}, {runner.replays} replays, "
                              f"launches per replay {per}")
     return dict(runner.launched), eager, runner.replays
@@ -1803,7 +1814,7 @@ def train_phase(torch, dev):
     eval_check("first capture")
     eval_before = eval_check("before training")
     eval_launches = graph_launches(eval_g.runner, {"B1": 44, "B2": 0, "B3": 18, "B4": 0,
-                                                   "B5": 0, "B6": 0}, 1, "eval")
+                                                   "B5": 0, "B6": 0, "AdamW": 0}, 1, "eval")
 
     # The path itself: 8 steps on the repeated batch and loss mask, shots
     # 3, 2, 1, 0 twice; the graphs of the four shots captured first.
@@ -1816,7 +1827,7 @@ def train_phase(torch, dev):
     reset_counts()
     step.runner.zero_counts()
     graphed = run_steps(torch, step, [(batch, s) for s in shots], lambda: gen.manual_seed(2))
-    per_step = {"B1": 44, "B2": 0, "B3": 18, "B4": 6, "B5": 0, "B6": 0}
+    per_step = {"B1": 44, "B2": 0, "B3": 18, "B4": 6, "B5": 0, "B6": 0, "AdamW": 1}
     per_replay = graph_launches(step.runner, per_step, len(shots), "train")
     if eager_launches != {k: v * len(shots) for k, v in per_step.items()}:
         raise AssertionError(f"train (eager): launches {eager_launches} over {len(shots)} "
@@ -1854,7 +1865,7 @@ def train_phase(torch, dev):
     step.runner.zero_counts()
     loss, ms = step_events(torch, step, (batch, 3))
     unfrozen = graph_launches(step.runner, {"B1": 44, "B2": 0, "B3": 18, "B4": 18, "B5": 0,
-                                            "B6": 0}, 1, "train, encoder unfrozen")
+                                            "B6": 0, "AdamW": 1}, 1, "train, encoder unfrozen")
     if not np.isfinite(loss):
         raise AssertionError(f"train, encoder unfrozen: loss {loss}")
     say("train_unfrozen", loss=loss, ms=ms, launches_per_replay=unfrozen)
@@ -1892,12 +1903,13 @@ def accum_phase(torch, dev):
                              f"step/updates {state.step}/{state.updates}")
     # the eager twin's launches are all the wrappers counted: the graphed
     # mini-steps launched nothing outside their graphs
-    per_step = {"B1": 44, "B2": 0, "B3": 18, "B4": 6, "B5": 0, "B6": 0}
-    want = {k: v * len(shots) for k, v in per_step.items()}
+    per_step = {"B1": 44, "B2": 0, "B3": 18, "B4": 6, "B5": 0, "B6": 0, "AdamW": 0}
+    want = {**{k: v * len(shots) for k, v in per_step.items()}, "AdamW": len(shots) // 2}
     if launch_counts() != want or step.runner.launched != want \
             or step.runner.replays != len(shots):
         raise AssertionError(f"accum: wrappers {launch_counts()}, graphs {step.runner.launched} "
-                             f"over {step.runner.replays} replays; {per_step} per step")
+                             f"over {step.runner.replays} replays; {per_step} per step, an "
+                             "AdamW launch per update")
     per_replay = {k: v / len(shots) for k, v in step.runner.launched.items()}
     same = compare_states(torch, "accum", state, twin, losses["graphed"], losses["eager"])
     say("accum", accum_iter=2, shots=shots, graphs=len(step.runner), losses=losses,
@@ -1964,8 +1976,8 @@ def checkpoint_phase(torch, dev, ref):
 # attention branch (its LayerNorm too), and its backward runs B3 (the
 # recompute) and B4.
 PRETRAIN_LAUNCHES = {
-    False: {"B1": 42, "B2": 0, "B3": 20, "B4": 20, "B5": 0, "B6": 0},
-    True: {"B1": 22, "B2": 20, "B3": 20, "B4": 20, "B5": 0, "B6": 0},
+    False: {"B1": 42, "B2": 0, "B3": 20, "B4": 20, "B5": 0, "B6": 0, "AdamW": 1},
+    True: {"B1": 22, "B2": 20, "B3": 20, "B4": 20, "B5": 0, "B6": 0, "AdamW": 1},
 }
 
 
@@ -2066,10 +2078,97 @@ def pretrain_phase(torch, dev, fused: bool):
     return launches
 
 
+
+# The fused AdamW update against its plain version over three updates
+# from the same state: the same operations in the same order, but the
+# kernel's fp32 bias corrections (pow on the card) and its contractions
+# (p - s * q in one fma) round apart from torch's: each parameter within
+# ADAMW_TOL of |ref| + lr * updates, each moment within ADAMW_TOL of the
+# tensor's largest |ref|.
+ADAMW_TOL = 1e-6
+
+
+def adamw_update(state, fn) -> None:
+    """One update of ``state``'s AdamW by ``fn`` (``fused_adamw`` or
+    ``adamw_plain``) from its flat gradient, at the group's settings."""
+    group = state.optimizer.param_groups[0]
+    beta1, beta2 = group["betas"]
+    fn(state.segments, state.flat[0], state.exp_avg, state.exp_avg_sq, state.adam_step,
+       group["lr"], beta1=beta1, beta2=beta2, eps=group["eps"],
+       weight_decay=group["weight_decay"])
+
+
+def adamw_phase(torch, dev):
+    """The fused AdamW update (ops/fused_adamw.py) at mae_base's trainable
+    parameters (the pretrain phase's state: 251 tensors, 111,654,912
+    fp32), the gradient N(0, 1e-3) drawn once: three updates of the
+    kernel against three of its plain version from the same state; one
+    eager update's launches; device ms (graph-replayed) of the kernel, the
+    plain version, and as the library's yardsticks torch's
+    AdamW(fused=True, capturable=True) and the capturable foreach AdamW
+    the port ran before, beside the 28-byte-a-parameter bound."""
+    from countr_tpu_torch.ops.fused_adamw import adamw_plain, fused_adamw
+
+    states = [pretrain_setup(torch, dev, False, graphed=False)[0] for _ in range(2)]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for st in states:
+        gen.manual_seed(0)
+        for g in st.grads:
+            g.normal_(0.0, 1e-3, generator=gen)
+        st.begin_step()  # the learning rate onto the device
+    kernel, plain = states
+    n = sum(p.numel() for p in kernel.params)
+    for _ in range(3):
+        for st, fn in ((kernel, fused_adamw), (plain, adamw_plain)):
+            st.adam_step.add_(1)
+            adamw_update(st, fn)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        param_d = max(float(((p - q).abs() / (q.abs() + 3 * PRETRAIN_LR)).max())
+                      for p, q in zip(kernel.params, plain.params))
+        moment_d = max(float((a - b).abs().max() / b.abs().max())
+                       for a, b in ((kernel.exp_avg, plain.exp_avg),
+                                    (kernel.exp_avg_sq, plain.exp_avg_sq)))
+        worst = max(max_abs(p, q) for p, q in zip(kernel.params, plain.params))
+    if not max(param_d, moment_d) <= ADAMW_TOL:
+        raise AssertionError(f"AdamW: kernel against plain, parameters {param_d}, moments "
+                             f"{moment_d} (relative) > {ADAMW_TOL}")
+    reset_counts()
+    adamw_update(kernel, fused_adamw)
+    torch.cuda.synchronize()
+    eager = launch_counts()
+    if eager != {k: int(k == "AdamW") for k in eager}:
+        raise AssertionError(f"AdamW: one eager update launched {eager}")
+    group = plain.optimizer.param_groups[0]
+    library = {}
+    for name, kw in (("fused", dict(fused=True)), ("foreach", dict(foreach=True))):
+        # fresh group dicts: an optimizer writes its defaults into those it is given
+        groups = [{"params": g["params"], "weight_decay": g["weight_decay"], "lr": g["lr"]}
+                  for g in plain.optimizer.param_groups]
+        opt = torch.optim.AdamW(groups, lr=group["lr"], betas=group["betas"], eps=group["eps"],
+                                capturable=True, **kw)
+        library[name] = graph_ms(torch, opt.step, [()])
+        del opt
+        torch.cuda.empty_cache()
+    row = dict(shape=[n, len(kernel.params)], max_abs_err=worst, max_param_rel_diff=param_d,
+               max_moment_rel_diff=moment_d, limit=ADAMW_TOL,
+               chunks=int(kernel.segments.table.shape[0]), align=kernel.segments.align,
+               ms=graph_ms(torch, lambda: adamw_update(kernel, fused_adamw), [()]),
+               plain_ms=graph_ms(torch, lambda: adamw_update(plain, adamw_plain), [()]),
+               library_ms=library["fused"], foreach_capturable_ms=library["foreach"],
+               bound_ms=28 * n / H100_BYTES_PER_S * 1e3, bound_by="bytes",
+               eager_launches=eager)
+    # the state's whole update (the step count, then the kernel): its kernels
+    row["update_kernels"] = profile_run(torch, lambda: kernel.apply_gradients(True), 2)["top"]
+    say("kernel", name="AdamW fused_adamw", **row)
+    del states, kernel, plain
+    torch.cuda.empty_cache()
+    return [row]
+
 FT_TRAIN, FT_VAL = 96, 16  # the synthetic tree of the finetune_cli phase
 FT_STEPS = 12  # --limit_steps: the steps of an epoch of the phase
-FT_TRAIN_LAUNCHES = {"B1": 44, "B2": 0, "B3": 18, "B4": 6, "B5": 0, "B6": 0}
-FT_EVAL_LAUNCHES = {"B1": 44, "B2": 0, "B3": 18, "B4": 0, "B5": 0, "B6": 0}
+FT_TRAIN_LAUNCHES = {"B1": 44, "B2": 0, "B3": 18, "B4": 6, "B5": 0, "B6": 0, "AdamW": 1}
+FT_EVAL_LAUNCHES = {"B1": 44, "B2": 0, "B3": 18, "B4": 0, "B5": 0, "B6": 0, "AdamW": 0}
 
 
 def finetune_args(d: str, out: str, *extra):
@@ -2367,7 +2466,7 @@ def check_runners(what: str, runners: dict, expect: dict, graphs_before: int, gr
 SURF_LOG_EVERY = 4  # the surfaces phase's --log_every
 SURF_STATS = ("train/loss", "train/MAE", "train/RMSE", "val/MAE", "val/RMSE", "val/NAE", "lr",
               "epoch_time_s")  # an epoch's record (countr_tpu/cli/finetune.py:446-456)
-ENTRY_LAUNCHES = {"B1": 26, "B2": 18, "B3": 0, "B4": 0, "B5": 0, "B6": 0}
+ENTRY_LAUNCHES = {"B1": 26, "B2": 18, "B3": 0, "B4": 0, "B5": 0, "B6": 0, "AdamW": 0}
 
 
 class RecordingWandb:
@@ -3279,7 +3378,8 @@ def parallel_counting(torch, model) -> dict:
     eager = launch_counts()
     per_replica = []
     for i, r in enumerate(runners):
-        want = {"B1": 26 * r.replays, "B2": 18 * r.replays, "B3": 0, "B4": 0, "B5": 0, "B6": 0}
+        want = {"B1": 26 * r.replays, "B2": 18 * r.replays, "B3": 0, "B4": 0, "B5": 0, "B6": 0,
+                "AdamW": 0}
         if any(eager.values()) or r.launched != want or r.replays == 0:
             raise AssertionError(f"parallel count_batch, replica {i}: {r.launched} over "
                                  f"{r.replays} replays, eager {eager}")
@@ -3407,6 +3507,7 @@ def main() -> int:
     b5_shapes = mlp_phase(torch, dev, ab)
     b6_shapes = cross_phase(torch, dev, ab)
     say("ab_launches", **ab)
+    adamw_shapes = adamw_phase(torch, dev)
 
     model = build_countr("mae_vit_base6_patch16", seed=0, **fast_mode_overrides("bf16"))
     forward_phase(torch, dev, model)
@@ -3493,6 +3594,12 @@ def main() -> int:
                      "attention on its own warps",
               device_kernels_per_call=sum(r["calls"] for r in
                                           b6_shapes[0]["device_kernels_per_call"])),
+        entry("AdamW fused_adamw", "triton", "countr_tpu_torch/ops/fused_adamw.py",
+              "none (optax's AdamW, left to XLA)", "pretrain", adamw_shapes,
+              foreach_capturable_ms=adamw_shapes[0]["foreach_capturable_ms"],
+              design="one launch over every trainable parameter: flat fp32 gradient and "
+                     "moments, the parameters in place through a chunk table, a persistent "
+                     "grid of 4 programs an SM, 16-byte vectors"),
     ]}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

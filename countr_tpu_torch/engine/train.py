@@ -10,6 +10,7 @@ util/misc.py:260-287, is not needed with bf16's fp32 exponent range).
 
 The JAX step is a pure function of a TrainState, compiled once per shape
 and ``shot_num``. Here the state holds the model, a ``torch.optim.AdamW``
+(the groups and Adam's state; the update is one ``ops.fused_adamw`` pass)
 and every buffer a step writes, allocated once and updated in place; a
 step returns the metrics. On a CUDA device each step is replayed from a
 CUDA graph (``engine/graphs.py``), one per input shape, ``shot_num`` and,
@@ -39,6 +40,7 @@ from countr_tpu_torch.models.vit import casts_at_use
 from countr_tpu_torch.ops.augment import (
     augment_batch, density_from_dots, draw_photometric, photometric,
 )
+from countr_tpu_torch.ops.fused_adamw import AdamWSegments, fused_adamw
 from countr_tpu_torch.parallel.mesh import rows_of
 from countr_tpu_torch.utils.profiling import span
 
@@ -72,13 +74,14 @@ def make_optimizer(
     the model's encoder is frozen (``model.cfg.freeze_encoder``) its
     parameters are in no group: no optimizer state, no update.
 
-    On a CUDA device the optimizer is ``capturable`` (its step counts on
-    the device, ``foreach``) and the learning rate is one 0-d device
-    tensor shared by both groups, which ``TrainState`` writes before each
-    step: a CUDA graph of the step reads it at every replay, where a float
-    would be frozen into the graph. Gradient accumulation
-    (``cfg.accum_iter``, optax.MultiSteps in the JAX package) is
-    ``TrainState``'s."""
+    The optimizer holds the groups, their settings and Adam's state (its
+    ``state_dict`` is what a checkpoint saves); ``TrainState`` makes the
+    update itself, one ``ops.fused_adamw`` pass over every group. On a
+    CUDA device the learning rate is one 0-d device tensor shared by both
+    groups, which ``TrainState`` writes before each step: a CUDA graph of
+    the step reads it at every replay, where a float would be frozen into
+    the graph. Gradient accumulation (``cfg.accum_iter``, optax.MultiSteps
+    in the JAX package) is ``TrainState``'s."""
     sched = warmup_cosine(
         cfg.resolved_lr(world_batch), epochs=cfg.epochs,
         warmup_epochs=cfg.warmup_epochs, steps_per_epoch=steps_per_epoch,
@@ -91,35 +94,13 @@ def make_optimizer(
         if frozen.get(name) != "frozen":
             groups[decay[name]].append(p)
     dev = next(model.parameters()).device
-    cuda = dev.type == "cuda"
-    lr = torch.zeros((), device=dev) if cuda else 0.0
+    lr = torch.zeros((), device=dev) if dev.type == "cuda" else 0.0
     opt = torch.optim.AdamW(
         [{"params": groups[True], "weight_decay": cfg.weight_decay, "lr": lr},
          {"params": groups[False], "weight_decay": 0.0, "lr": lr}],
         lr=lr, betas=(0.9, 0.95), eps=1e-8,
-        **(dict(capturable=True, foreach=True) if cuda else {}),
     )
-    # the eager steps on the card run the same capturable update on
-    # purpose (the same bits as the graphed ones): no warning about it
-    opt._warned_capturable_if_run_uncaptured = True
     return opt, sched
-
-
-def _flat_buffers(params) -> Tuple[list, list]:
-    """One zeroed flat buffer per dtype over ``params``, and each
-    parameter's gradient as a view of its buffer, in ``params``' order."""
-    by_dtype: Dict = {}
-    for p in params:
-        by_dtype.setdefault(p.dtype, []).append(p)
-    flats, views = [], {}
-    for ps in by_dtype.values():
-        flat = torch.zeros(sum(p.numel() for p in ps), dtype=ps[0].dtype, device=ps[0].device)
-        off = 0
-        for p in ps:
-            views[id(p)] = flat[off:off + p.numel()].view(p.shape)
-            off += p.numel()
-        flats.append(flat)
-    return flats, [views[id(p)] for p in params]
 
 
 def all_reduce_mean(t: torch.Tensor, group, world: int) -> torch.Tensor:
@@ -154,11 +135,21 @@ class TrainState:
     Every buffer a step writes exists from the start and is only ever
     written in place, so a CUDA graph of the step stays valid: a gradient
     for every trainable parameter (zeroed in place at each step, never set
-    to None), Adam's moments and step counts, and under ``accum_iter`` > 1
+    to None), Adam's moments and step count, and under ``accum_iter`` > 1
     the accumulator. A trainable parameter the step's loss does not reach
     (the exemplar CNN at zero shots, the shot token otherwise) thus gets a
     zero gradient, as in optax: its moments decay and weight decay
     applies.
+
+    The gradients and Adam's two moments are views of flat float32
+    buffers laid out alike, in the groups' order (``segments``,
+    ``ops.fused_adamw.AdamWSegments``): ``flat`` (a list of the one
+    gradient buffer), ``exp_avg`` and ``exp_avg_sq``. The optimizer's
+    state holds those views under ``exp_avg`` and ``exp_avg_sq`` and one
+    shared 0-d step count (``adam_step``) under every ``step``, so that
+    its ``state_dict`` keeps torch's layout. An update is one
+    ``fused_adamw`` pass over the three buffers and the parameters in
+    place, on the card one kernel launch.
 
     Gradient accumulation follows ``optax.MultiSteps`` (use_grad_mean):
     mini-step n of each cycle of ``accum_iter`` folds its gradient g into
@@ -168,8 +159,8 @@ class TrainState:
     clears the accumulator.
 
     Data parallelism (``mesh``, a rank's ``parallel.mesh.Mesh``): each
-    rank's gradients are views of one flat buffer per dtype, averaged
-    across the ranks by one all-reduce per buffer before the accumulation
+    rank's flat gradient buffer is averaged across the ranks by one
+    all-reduce before the accumulation
     (``apply_gradients``), and the steps average their metrics and sum the
     eval's error sums the same way; on the card the collectives are
     captured in the steps' graphs. Every per-sample random value is drawn
@@ -190,23 +181,28 @@ class TrainState:
         self.updates = 0
         self.group = mesh.group if mesh is not None else None
         self.rank, self.world = (mesh.rank, mesh.world) if mesh is not None else (0, 1)
-        self.params = [p for g in optimizer.param_groups for p in g["params"]]
+        groups = optimizer.param_groups
+        if any(g["weight_decay"] or (g["betas"], g["eps"]) != (groups[0]["betas"],
+                                                              groups[0]["eps"])
+               for g in groups[1:]):
+            raise ValueError("TrainState: the groups after the first must share its betas "
+                             "and eps and take no weight decay")
+        self.params = [p for g in groups for p in g["params"]]
         self.device = self.params[0].device
+        self.segments = AdamWSegments(self.params, len(groups[0]["params"]))
+        n = self.segments.length
         with torch.no_grad():
-            self.flat, self.grads = _flat_buffers(self.params)
+            self.flat = [torch.zeros(n, device=self.device)]
+            self.grads = self.segments.views(self.flat[0])
+            self.exp_avg, self.exp_avg_sq = (torch.zeros(n, device=self.device),
+                                             torch.zeros(n, device=self.device))
+            self.adam_step = torch.zeros((), device=self.device)
             self.acc = [torch.zeros_like(p) for p in self.params] if accum_iter > 1 else []
             self.divisor = torch.ones((), device=self.device)  # n + 1 of MultiSteps
-            for group in optimizer.param_groups:
-                for p in group["params"]:
-                    st = optimizer.state[p]
-                    if not st:  # what torch's AdamW makes at its first step
-                        cap = group.get("capturable", False)
-                        st["step"] = torch.zeros((), device=p.device if cap else "cpu")
-                        st["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
-                        st["exp_avg_sq"] = torch.zeros_like(p,
-                                                            memory_format=torch.preserve_format)
-        for p, g in zip(self.params, self.grads):
+        for p, g, m, v in zip(self.params, self.grads, self.segments.views(self.exp_avg),
+                              self.segments.views(self.exp_avg_sq)):
             p.grad = g
+            optimizer.state[p].update(step=self.adam_step, exp_avg=m, exp_avg_sq=v)
 
     def moments(self, p: torch.Tensor) -> list:
         """Adam's tensors for parameter ``p``: step, exp_avg, exp_avg_sq."""
@@ -214,11 +210,11 @@ class TrainState:
         return [st["step"], st["exp_avg"], st["exp_avg_sq"]]
 
     def mutable(self) -> list:
-        """Every tensor a step writes: the trainable parameters, their
-        gradients (the flat buffers they are views of), Adam's tensors and
-        the accumulator."""
-        return (list(self.params) + self.flat + self.acc
-                + [t for p in self.params for t in self.moments(p)])
+        """Every tensor a step writes: the trainable parameters, the flat
+        buffers of their gradients and of Adam's moments, Adam's step count
+        and the accumulator."""
+        return (list(self.params) + self.flat + [self.exp_avg, self.exp_avg_sq, self.adam_step]
+                + self.acc)
 
     def begin_step(self) -> bool:
         """The host's part before a mini-step: put the gradient buffers
@@ -251,7 +247,8 @@ class TrainState:
         mean over the same number of samples); fold them into the
         accumulator (MultiSteps' acc + (g - acc) / (n + 1), in that order
         of operations) and, on an update, AdamW on the mean (the gradients
-        themselves without accumulation)."""
+        themselves without accumulation): the step count, then one
+        ``fused_adamw`` pass."""
         if self.group is not None:
             for flat in self.flat:
                 all_reduce_mean(flat, self.group, self.world)
@@ -264,7 +261,12 @@ class TrainState:
             else:
                 torch._foreach_add_(self.acc, self.grads)
         if update:
-            self.optimizer.step()
+            group = self.optimizer.param_groups[0]
+            beta1, beta2 = group["betas"]
+            self.adam_step.add_(1)
+            fused_adamw(self.segments, self.flat[0], self.exp_avg, self.exp_avg_sq,
+                        self.adam_step, group["lr"], beta1=beta1, beta2=beta2, eps=group["eps"],
+                        weight_decay=group["weight_decay"])
 
     def end_step(self, update: bool) -> None:
         self.step += 1

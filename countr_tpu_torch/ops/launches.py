@@ -4,16 +4,18 @@ Each wrapper adds one to its counter where it launches its kernel
 (``fused_layer_norm.launches`` for B1, ``fused_attention_block.launches``
 for B2, ``fused_attention.launches`` and ``.bwd_launches`` for B3 and B4,
 ``fused_mlp_block.launches`` for B5, ``fused_cross_attention_block
-.launches`` for B6). A CUDA graph's replay runs no wrapper: the graph
-runner (engine/graphs.py) keeps its own counts.
+.launches`` for B6, ``fused_adamw.launches`` for the training state's
+AdamW update, which replaces no TPU kernel). A CUDA graph's replay runs
+no wrapper: the graph runner (engine/graphs.py) keeps its own counts.
 """
 
 from __future__ import annotations
 
-KERNELS = ("B1", "B2", "B3", "B4", "B5", "B6")
+KERNELS = ("B1", "B2", "B3", "B4", "B5", "B6", "AdamW")
 
 
 def _counters():
+    from countr_tpu_torch.ops.fused_adamw import fused_adamw
     from countr_tpu_torch.ops.fused_attn import fused_attention
     from countr_tpu_torch.ops.fused_block import fused_attention_block
     from countr_tpu_torch.ops.fused_cross import fused_cross_attention_block
@@ -23,7 +25,8 @@ def _counters():
     return {"B1": (fused_layer_norm, "launches"), "B2": (fused_attention_block, "launches"),
             "B3": (fused_attention, "launches"), "B4": (fused_attention, "bwd_launches"),
             "B5": (fused_mlp_block, "launches"),
-            "B6": (fused_cross_attention_block, "launches")}
+            "B6": (fused_cross_attention_block, "launches"),
+            "AdamW": (fused_adamw, "launches")}
 
 
 def launch_counts() -> dict:

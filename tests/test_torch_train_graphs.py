@@ -7,7 +7,7 @@ so it runs there with ``python -m pytest --noconftest
 tests/test_torch_train_graphs.py``). Tiny widths at the full 384 window,
 the bf16 training builds: CounTR with B1 and B3/B4 (B2 off, encoder
 frozen), the MAE with B1 and B3/B4 or with B2 (its backward through
-B3/B4). The eager steps use the same capturable AdamW, so the two agree
+B3/B4). The eager steps launch the same fused AdamW kernel, so the two agree
 to the bit:
 
 - finetune over six mini-steps of four shots, one graph per shot: every
