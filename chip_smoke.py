@@ -215,6 +215,15 @@ Phases, one line each on stdout:
      materialisation replayed from a graph and eager with the process's
      TF32 flags on against eager with them off (the same bits), its ms and
      the store's bytes;
+  19b. pretrain_huge: the same CLI in this process with
+     --model mae_vit_huge_patch14 (ViT-H/14 at 378 px, 32 x 1280, 16 heads
+     of 80), batch 32, one epoch of 3 steps on --resident_data and on the
+     host path: B1 82, B3 40 and B4 40 per replay, of them B3h80 32 and
+     B4h80 32 (head dim 80), AdamW 1, no eager launch, no capture during
+     the epoch; finite losses, crops of 378 px, the step's ms on the card
+     and the peak memory; one AdamW update over 656.6 M parameters
+     against its plain version on a copy of the state (adamw's bound),
+     and the ms of each beside the bound;
   20. store_pool: materialize_batch alone on a pool of FSC147's size made
      on the card (3659 random images at 384x512, ~2.2 GB uint8), batches of
      8 with 2 mosaics, eager and graph-replayed ms beside the bytes bound;
@@ -227,6 +236,12 @@ Phases, one line each on stdout:
      replay, no eager launch, no capture during 2 epochs; loader-fed
      images/s, the idle share, the step's ms on the card, the host's ms per
      sample; four graphed steps against four eager ones, to the bit.
+  22. the kernel lines of B1, B3 and B4 at ViT-H/14's shapes
+     (mae_vit_huge_patch14, batch 32): B1 at [11648, 1280] and [23328,
+     512], B3/B4 at [32, 364, 1280] with 16 heads of 80 and [32, 729,
+     512] with 16 of 32, as phase 3 measures the others; last, since a
+     one-kernel torch.profiler window after their profiled passes lost
+     its only record (B6's check in phase 3 read none);
 Then a {"kernels": [...]} line, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failed check raises: nonzero
 exit code and no result line. Needs a CUDA device; uses no JAX.
@@ -279,6 +294,13 @@ PRETRAIN_BATCH = 16  # cli/pretrain.py:38
 # FSC_pretrain.py's scaling). The real recipe reaches it after a 10-epoch
 # warmup; eight Adam steps at it move every weight by about 1e-5.
 PRETRAIN_LR = 1.5e-4 * PRETRAIN_BATCH / 256
+# mae_vit_huge_patch14's batch (the pretrain-huge-resident cell's, MAE's
+# 4096 over 128 TPU cores) and its attention shapes: the encoder's 364
+# kept tokens of a 27 x 27 grid at 16 heads of 80, the decoder's 729 at 16
+# of 32.
+HUGE_BATCH = 32
+HUGE_ATTN_SHAPES = ((HUGE_BATCH, 364, 1280, 16), (HUGE_BATCH, 729, 512, 16))
+HUGE_LN_SHAPES = ((HUGE_BATCH * 364, 1280), (HUGE_BATCH * 729, 512))
 
 
 def say(phase: str, **kv) -> None:
@@ -382,13 +404,13 @@ def phase_build():
             ptxas=[ln.strip() for ln in rec["log"].splitlines() if "Used" in ln], **extra)
 
 
-def ln_phase(torch, dev):
+def ln_phase(torch, dev, sizes=((WINDOWS * 576, 768), (WINDOWS * 576, 512))):
     import torch.nn.functional as F
     from countr_tpu_torch.ops.fused_ln import fused_layer_norm, layer_norm_plain
 
     rng = np.random.default_rng(0)
     shapes = []
-    for rows, c in ((WINDOWS * 576, 768), (WINDOWS * 576, 512)):
+    for rows, c in sizes:
         xs = [torch.from_numpy(rng.standard_normal((rows, c), np.float32)).to(dev, torch.bfloat16)
               for _ in range(8)]
         s = torch.from_numpy(1 + 0.05 * rng.standard_normal(c, np.float32)).to(dev)
@@ -511,14 +533,17 @@ def block_phase(torch, dev):
     return shapes
 
 
-def attn_phase(torch, dev):
+def attn_phase(torch, dev, shapes=((TRAIN_BATCH, 576, 512, 16), (TRAIN_BATCH, 576, 768, 12),
+                                   (PRETRAIN_BATCH, 288, 768, 12),
+                                   (PRETRAIN_BATCH, 576, 512, 16), (WINDOWS, 576, 768, 12))):
     """B3 and B4 at the train step's shapes: [8, 576, 512] with 16 heads
     (decoder) and [8, 576, 768] with 12 (encoder), and at the pretrain
     step's: the encoder's [16, 288, 768] with 12 (the 288 visible tokens
     of a 0.5 mask) and the decoder's [16, 576, 512] with 16; B3 also at
     B2's encoder shape [16, 576, 768] with 12, the core of B2's step 3;
-    packed qkv. Each shape's ``core`` line gives the attention core's
-    plan (``fused_attn.core_plan``)."""
+    packed qkv (``shapes``; the smoke's last phase passes ViT-H/14's,
+    HUGE_ATTN_SHAPES). Each shape's ``core`` line gives the attention
+    core's plan (``fused_attn.core_plan``)."""
     import torch.nn.functional as F
     from countr_tpu_torch.ops.fused_attn import (
         attention_bwd_plain, attention_exp2, core_plan, fused_attention_bwd, fused_attention_qkv,
@@ -527,9 +552,7 @@ def attn_phase(torch, dev):
     rng = np.random.default_rng(5)
     bf = torch.bfloat16
     fwd, bwd = [], []
-    for b, n, c, h in ((TRAIN_BATCH, 576, 512, 16), (TRAIN_BATCH, 576, 768, 12),
-                       (PRETRAIN_BATCH, 288, 768, 12), (PRETRAIN_BATCH, 576, 512, 16),
-                       (WINDOWS, 576, 768, 12)):
+    for b, n, c, h in shapes:
         hd = c // h
         with_b4 = (b, n, c, h) != (WINDOWS, 576, 768, 12)
         say("core", shape=[b, n, c, h], **core_plan(b, n, c, h))
@@ -1033,7 +1056,7 @@ def count_phase(torch, model):
     if results[-1].n_windows != 36:
         raise AssertionError(f"grid image ran {results[-1].n_windows} windows, not 36")
     if launches != {"B1": 26 * batches, "B2": 18 * batches, "B3": 0, "B4": 0, "B5": 0,
-                    "B6": 0, "AdamW": 0} or batches == 0:
+                    "B6": 0, "AdamW": 0, "B3h80": 0, "B4h80": 0} or batches == 0:
         raise AssertionError(f"launches {launches} for {batches} window batches")
     say("count_launches", window_batches=batches, **launches)
     return launches
@@ -1098,7 +1121,8 @@ def graph_phase(torch, engine):
         e_ms = events_ms(lambda: model.forward_tokens(imgs, y), iters=10)
     replays = graphed.runner.replays
     per_replay = {k: v / replays for k, v in graphed.runner.launched.items()}
-    if per_replay != {"B1": 26, "B2": 18, "B3": 0, "B4": 0, "B5": 0, "B6": 0, "AdamW": 0}:
+    if per_replay != {"B1": 26, "B2": 18, "B3": 0, "B4": 0, "B5": 0, "B6": 0, "AdamW": 0,
+                      "B3h80": 0, "B4h80": 0}:
         raise AssertionError(f"graphed forward: launches per replay {per_replay}")
 
     saved = {k: v.clone() for k, v in model.state_dict().items()}
@@ -1152,7 +1176,7 @@ def count_batch_phase(torch, engine):
         len(chunk_plan(sum(engine.windows_per_image(images[i].shape[1], rects[i])[1]
                            for i in idxs), engine.batch_windows)) for idxs in sets)
     want = {"B1": 26 * replays, "B2": 18 * replays, "B3": 0, "B4": 0, "B5": 0, "B6": 0,
-            "AdamW": 0}
+            "AdamW": 0, "B3h80": 0, "B4h80": 0}
     if any(eager.values()) or graphed != want or replays != expect_replays or replays == 0:
         raise AssertionError(f"count_batch: eager launches {eager}, graph launches {graphed} "
                              f"over {replays} replays (expected {expect_replays})")
@@ -1227,7 +1251,8 @@ def per_replay(runner, what: str):
     eager = launch_counts()
     per = {k: v / max(runner.replays, 1) for k, v in runner.launched.items()}
     if any(eager.values()) or runner.replays == 0 or per != {
-            "B1": 26, "B2": 18, "B3": 0, "B4": 0, "B5": 0, "B6": 0, "AdamW": 0}:
+            "B1": 26, "B2": 18, "B3": 0, "B4": 0, "B5": 0, "B6": 0, "AdamW": 0,
+            "B3h80": 0, "B4h80": 0}:
         raise AssertionError(f"{what}: eager launches {eager}, {runner.replays} replays, "
                              f"launches per replay {per}")
     return dict(runner.launched), eager, runner.replays
@@ -1814,7 +1839,8 @@ def train_phase(torch, dev):
     eval_check("first capture")
     eval_before = eval_check("before training")
     eval_launches = graph_launches(eval_g.runner, {"B1": 44, "B2": 0, "B3": 18, "B4": 0,
-                                                   "B5": 0, "B6": 0, "AdamW": 0}, 1, "eval")
+                                                   "B5": 0, "B6": 0, "AdamW": 0,
+                                                   "B3h80": 0, "B4h80": 0}, 1, "eval")
 
     # The path itself: 8 steps on the repeated batch and loss mask, shots
     # 3, 2, 1, 0 twice; the graphs of the four shots captured first.
@@ -1827,7 +1853,8 @@ def train_phase(torch, dev):
     reset_counts()
     step.runner.zero_counts()
     graphed = run_steps(torch, step, [(batch, s) for s in shots], lambda: gen.manual_seed(2))
-    per_step = {"B1": 44, "B2": 0, "B3": 18, "B4": 6, "B5": 0, "B6": 0, "AdamW": 1}
+    per_step = {"B1": 44, "B2": 0, "B3": 18, "B4": 6, "B5": 0, "B6": 0, "AdamW": 1,
+                "B3h80": 0, "B4h80": 0}
     per_replay = graph_launches(step.runner, per_step, len(shots), "train")
     if eager_launches != {k: v * len(shots) for k, v in per_step.items()}:
         raise AssertionError(f"train (eager): launches {eager_launches} over {len(shots)} "
@@ -1865,7 +1892,8 @@ def train_phase(torch, dev):
     step.runner.zero_counts()
     loss, ms = step_events(torch, step, (batch, 3))
     unfrozen = graph_launches(step.runner, {"B1": 44, "B2": 0, "B3": 18, "B4": 18, "B5": 0,
-                                            "B6": 0, "AdamW": 1}, 1, "train, encoder unfrozen")
+                                            "B6": 0, "AdamW": 1, "B3h80": 0, "B4h80": 0},
+                              1, "train, encoder unfrozen")
     if not np.isfinite(loss):
         raise AssertionError(f"train, encoder unfrozen: loss {loss}")
     say("train_unfrozen", loss=loss, ms=ms, launches_per_replay=unfrozen)
@@ -1903,8 +1931,10 @@ def accum_phase(torch, dev):
                              f"step/updates {state.step}/{state.updates}")
     # the eager twin's launches are all the wrappers counted: the graphed
     # mini-steps launched nothing outside their graphs
-    per_step = {"B1": 44, "B2": 0, "B3": 18, "B4": 6, "B5": 0, "B6": 0, "AdamW": 0}
-    want = {**{k: v * len(shots) for k, v in per_step.items()}, "AdamW": len(shots) // 2}
+    per_step = {"B1": 44, "B2": 0, "B3": 18, "B4": 6, "B5": 0, "B6": 0, "AdamW": 0,
+                "B3h80": 0, "B4h80": 0}
+    want = {**{k: v * len(shots) for k, v in per_step.items()}, "AdamW": len(shots) // 2,
+            "B3h80": 0, "B4h80": 0}
     if launch_counts() != want or step.runner.launched != want \
             or step.runner.replays != len(shots):
         raise AssertionError(f"accum: wrappers {launch_counts()}, graphs {step.runner.launched} "
@@ -1976,8 +2006,10 @@ def checkpoint_phase(torch, dev, ref):
 # attention branch (its LayerNorm too), and its backward runs B3 (the
 # recompute) and B4.
 PRETRAIN_LAUNCHES = {
-    False: {"B1": 42, "B2": 0, "B3": 20, "B4": 20, "B5": 0, "B6": 0, "AdamW": 1},
-    True: {"B1": 22, "B2": 20, "B3": 20, "B4": 20, "B5": 0, "B6": 0, "AdamW": 1},
+    False: {"B1": 42, "B2": 0, "B3": 20, "B4": 20, "B5": 0, "B6": 0, "AdamW": 1,
+            "B3h80": 0, "B4h80": 0},
+    True: {"B1": 22, "B2": 20, "B3": 20, "B4": 20, "B5": 0, "B6": 0, "AdamW": 1,
+           "B3h80": 0, "B4h80": 0},
 }
 
 
@@ -2098,6 +2130,29 @@ def adamw_update(state, fn) -> None:
        weight_decay=group["weight_decay"])
 
 
+def adamw_gaps(torch, what: str, kernel, plain, lr_updates: float):
+    """The kernel's parameters and moments (``kernel``, a state or any
+    object with ``segments``, ``exp_avg`` and ``exp_avg_sq``) against the
+    plain version's (``plain``) after the same updates: each parameter
+    within ADAMW_TOL of |ref| + ``lr_updates`` (lr times the updates),
+    each moment within ADAMW_TOL of its buffer's largest |ref|; raises
+    past them. Returns (parameters' relative gap, moments', max|d| of the
+    parameters)."""
+    torch.cuda.synchronize()
+    pk, pp = kernel.segments.params, plain.segments.params
+    with torch.no_grad():
+        param_d = max(float(((p - q).abs() / (q.abs() + lr_updates)).max())
+                      for p, q in zip(pk, pp))
+        moment_d = max(float((a - b).abs().max() / b.abs().max())
+                       for a, b in ((kernel.exp_avg, plain.exp_avg),
+                                    (kernel.exp_avg_sq, plain.exp_avg_sq)))
+        worst = max(max_abs(p, q) for p, q in zip(pk, pp))
+    if not max(param_d, moment_d) <= ADAMW_TOL:
+        raise AssertionError(f"{what}: kernel against plain, parameters {param_d}, moments "
+                             f"{moment_d} (relative) > {ADAMW_TOL}")
+    return param_d, moment_d, worst
+
+
 def adamw_phase(torch, dev):
     """The fused AdamW update (ops/fused_adamw.py) at mae_base's trainable
     parameters (the pretrain phase's state: 251 tensors, 111,654,912
@@ -2122,17 +2177,7 @@ def adamw_phase(torch, dev):
         for st, fn in ((kernel, fused_adamw), (plain, adamw_plain)):
             st.adam_step.add_(1)
             adamw_update(st, fn)
-    torch.cuda.synchronize()
-    with torch.no_grad():
-        param_d = max(float(((p - q).abs() / (q.abs() + 3 * PRETRAIN_LR)).max())
-                      for p, q in zip(kernel.params, plain.params))
-        moment_d = max(float((a - b).abs().max() / b.abs().max())
-                       for a, b in ((kernel.exp_avg, plain.exp_avg),
-                                    (kernel.exp_avg_sq, plain.exp_avg_sq)))
-        worst = max(max_abs(p, q) for p, q in zip(kernel.params, plain.params))
-    if not max(param_d, moment_d) <= ADAMW_TOL:
-        raise AssertionError(f"AdamW: kernel against plain, parameters {param_d}, moments "
-                             f"{moment_d} (relative) > {ADAMW_TOL}")
+    param_d, moment_d, worst = adamw_gaps(torch, "AdamW", kernel, plain, 3 * PRETRAIN_LR)
     reset_counts()
     adamw_update(kernel, fused_adamw)
     torch.cuda.synchronize()
@@ -2167,8 +2212,10 @@ def adamw_phase(torch, dev):
 
 FT_TRAIN, FT_VAL = 96, 16  # the synthetic tree of the finetune_cli phase
 FT_STEPS = 12  # --limit_steps: the steps of an epoch of the phase
-FT_TRAIN_LAUNCHES = {"B1": 44, "B2": 0, "B3": 18, "B4": 6, "B5": 0, "B6": 0, "AdamW": 1}
-FT_EVAL_LAUNCHES = {"B1": 44, "B2": 0, "B3": 18, "B4": 0, "B5": 0, "B6": 0, "AdamW": 0}
+FT_TRAIN_LAUNCHES = {"B1": 44, "B2": 0, "B3": 18, "B4": 6, "B5": 0, "B6": 0, "AdamW": 1,
+                     "B3h80": 0, "B4h80": 0}
+FT_EVAL_LAUNCHES = {"B1": 44, "B2": 0, "B3": 18, "B4": 0, "B5": 0, "B6": 0, "AdamW": 0,
+                    "B3h80": 0, "B4h80": 0}
 
 
 def finetune_args(d: str, out: str, *extra):
@@ -2466,7 +2513,8 @@ def check_runners(what: str, runners: dict, expect: dict, graphs_before: int, gr
 SURF_LOG_EVERY = 4  # the surfaces phase's --log_every
 SURF_STATS = ("train/loss", "train/MAE", "train/RMSE", "val/MAE", "val/RMSE", "val/NAE", "lr",
               "epoch_time_s")  # an epoch's record (countr_tpu/cli/finetune.py:446-456)
-ENTRY_LAUNCHES = {"B1": 26, "B2": 18, "B3": 0, "B4": 0, "B5": 0, "B6": 0, "AdamW": 0}
+ENTRY_LAUNCHES = {"B1": 26, "B2": 18, "B3": 0, "B4": 0, "B5": 0, "B6": 0, "AdamW": 0,
+                  "B3h80": 0, "B4h80": 0}
 
 
 class RecordingWandb:
@@ -3070,6 +3118,121 @@ def pretrain_cli_phase(torch, d: str):
     return by_path
 
 
+HUGE_LAUNCHES = {"B1": 82, "B2": 0, "B3": 40, "B4": 40, "B5": 0, "B6": 0, "AdamW": 1,
+                 "B3h80": 32, "B4h80": 32}  # 32 x 1280 encoder, 8 x 512 decoder
+
+
+def huge_adamw(torch, state) -> dict:
+    """The fused AdamW at ViT-H/14's 491 tensors and 656.6 M fp32
+    parameters (flat buffers of 2.6 GB, so byte offsets pass 2^31)
+    against its plain version: one update of ``state`` by the kernel and
+    one of a copy of its parameters, moments and step count by
+    ``adamw_plain``, from the last step's gradient and a copy of it:
+    the parameters held to adamw_phase's bound (``adamw_gaps``, lr times
+    one update, at the cell's peak lr), the moments to the bit;
+    then both updates' device ms (graph-replayed) beside the
+    28-byte-a-parameter bound."""
+    import copy
+    import types
+
+    from countr_tpu_torch.ops.fused_adamw import adamw_plain, fused_adamw
+
+    with torch.no_grad():
+        seg = copy.copy(state.segments)  # adamw_plain reads params, offsets, decay_end
+        seg.params = [p.detach().clone() for p in state.params]
+        plain = types.SimpleNamespace(
+            segments=seg, flat=[state.flat[0].clone()], exp_avg=state.exp_avg.clone(),
+            exp_avg_sq=state.exp_avg_sq.clone(), adam_step=state.adam_step.clone(),
+            optimizer=state.optimizer)
+    # the cell's peak lr: the phase's one epoch ends inside the warm-up,
+    # where a near-zero lr would leave the parameters' part unchecked
+    group, lr = state.optimizer.param_groups[0], 1.5e-4 * HUGE_BATCH / 256
+    if torch.is_tensor(group["lr"]):
+        group["lr"].fill_(lr)
+    else:
+        group["lr"] = lr
+    for st, fn in ((state, fused_adamw), (plain, adamw_plain)):
+        st.adam_step.add_(1)
+        adamw_update(st, fn)
+    param_d, moment_d, worst = adamw_gaps(torch, "AdamW (ViT-H/14)", state, plain, lr)
+    if moment_d != 0.0:  # the same fp32 operations per element: adamw_phase reads 0
+        raise AssertionError(f"AdamW (ViT-H/14): the kernel's moments are not the plain "
+                             f"version's bits ({moment_d} relative)")
+    n = sum(p.numel() for p in state.params)
+    out = dict(adamw_shape=[n, len(state.params)], adamw_max_abs_err=worst,
+               adamw_max_param_rel_diff=param_d, adamw_max_moment_rel_diff=moment_d,
+               adamw_limit=ADAMW_TOL, adamw_chunks=int(state.segments.table.shape[0]),
+               adamw_ms=graph_ms(torch, lambda: adamw_update(state, fused_adamw), [()]),
+               adamw_plain_ms=graph_ms(torch, lambda: adamw_update(plain, adamw_plain), [()]),
+               adamw_bound_ms=28 * n / H100_BYTES_PER_S * 1e3)
+    del plain, seg
+    torch.cuda.empty_cache()
+    return out
+
+
+def pretrain_huge_phase(torch, d: str) -> dict:
+    """countr_tpu_torch.cli.pretrain with mae_vit_huge_patch14 (ViT-H/14
+    at 378 px: 32 x 1280, 16 heads of 80; bf16, batch 32) on the synthetic
+    tree ``d``, in this process, on --resident_data and on the host path:
+    one epoch of graphed steps each, B3 and B4 at head dim 80 in every
+    encoder block (launches per replay against HUGE_LAUNCHES, no eager
+    launch, no capture during the epoch), finite losses, 378-px crops, the
+    graphed step's ms on a batch already on the card and the peak memory;
+    on the resident path last, the AdamW update over the model's 656.6 M
+    parameters against its plain version, and the device ms of each
+    beside the 28-byte-a-parameter bound (``huge_adamw``).
+    Returns each path's graph launches."""
+    from countr_tpu_torch.bench import events_ms
+    from countr_tpu_torch.cli import pretrain as cli
+    from countr_tpu_torch.data.loader import device_prefetch
+    from countr_tpu_torch.engine.train_store import materialize_pretrain_batch
+
+    t_phase = time.perf_counter()
+    by_path = {}
+    for resident in (True, False):
+        path = "resident" if resident else "host"
+        extra = ("--resident_data",) if resident else ()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pt = cli.Pretrain(pretrain_args(d, "", "--model", "mae_vit_huge_patch14", "--epochs", "1",
+                                        "--batch_size", str(HUGE_BATCH), *extra))
+        build_s = time.perf_counter() - t0
+        graphs = pt.graphs()
+        runner = pt.train_step.runner
+        reset_counts()
+        runner.zero_counts()
+        stats = pt.run()
+        replays, per, eager = check_runners(
+            f"pretrain_huge ({path})", {"train": runner},
+            {"train": (FT_TRAIN // HUGE_BATCH, HUGE_LAUNCHES)}, graphs, pt.graphs())
+        if not all(np.isfinite(r["train/loss"]) for r in stats):
+            raise AssertionError(f"pretrain_huge ({path}): stats {stats}")
+        launches = dict(runner.launched)
+        batch = next(device_prefetch(pt.train_dl.epoch(1), pt.device, pt.batch_keys))
+        if resident:
+            with torch.no_grad():
+                imgs = materialize_pretrain_batch(pt.store.arrays, batch, pt.store.max_w,
+                                                  pt.img_size)
+        else:
+            imgs = batch["image"]
+        if tuple(imgs.shape) != (HUGE_BATCH, 378, 378, 3):
+            raise AssertionError(f"pretrain_huge ({path}): crops {tuple(imgs.shape)}")
+        step_ms = events_ms(lambda: pt.train_step(pt._inputs(batch)), iters=4)
+        # the weights move on: the phase's checks are done
+        adamw = huge_adamw(torch, pt.state) if resident else {}
+        say("pretrain_huge", path=path, build_s=build_s, capture_s=pt.capture_s, graphs=graphs,
+            epochs=stats, replays=replays, launches_per_replay=per, eager_launches=eager,
+            step_ms_on_card=step_ms, step_images_per_s_on_card=HUGE_BATCH / step_ms * 1e3,
+            peak_bytes=torch.cuda.max_memory_allocated(),
+            params=sum(p.numel() for p in pt.model.parameters()), **adamw)
+        by_path["pretrain_huge_resident" if resident else "pretrain_huge"] = launches
+        pt.close()
+        del pt, runner, batch, imgs
+        torch.cuda.empty_cache()
+    say("pretrain_huge_done", seconds=time.perf_counter() - t_phase)
+    return by_path
+
+
 POOL_IMAGES, POOL_H, POOL_W = 3659, 384, 512  # FSC147's train split, at 384x512
 
 
@@ -3379,7 +3542,7 @@ def parallel_counting(torch, model) -> dict:
     per_replica = []
     for i, r in enumerate(runners):
         want = {"B1": 26 * r.replays, "B2": 18 * r.replays, "B3": 0, "B4": 0, "B5": 0, "B6": 0,
-                "AdamW": 0}
+                "AdamW": 0, "B3h80": 0, "B4h80": 0}
         if any(eager.values()) or r.launched != want or r.replays == 0:
             raise AssertionError(f"parallel count_batch, replica {i}: {r.launched} over "
                                  f"{r.replays} replays, eager {eager}")
@@ -3540,8 +3703,16 @@ def main() -> int:
         by_path.update(surfaces_phase(torch, d))
         by_path["resident_cli"] = resident_cli_phase(torch, d)
         by_path.update(pretrain_cli_phase(torch, d))
+        by_path.update(pretrain_huge_phase(torch, d))
     store_pool_phase(torch, dev)
     by_path["carpk_cli"] = carpk_cli_phase(torch)
+    # ViT-H/14's kernel shapes last: after their profiled passes, a
+    # one-kernel torch.profiler window (B6's check) lost its only record
+    torch.cuda.empty_cache()
+    ln_shapes += ln_phase(torch, dev, HUGE_LN_SHAPES)
+    huge_b3, huge_b4 = attn_phase(torch, dev, HUGE_ATTN_SHAPES)
+    b3_shapes += huge_b3
+    b4_shapes += huge_b4
 
     def entry(name, route, source, replaces, path, shapes, **extra):
         main_shape = dict(shapes[0])

@@ -5,7 +5,8 @@ periodic, last and params-only checkpoints (``cli.finetune
 --init_from_mae`` reads the params-only ones), and the reconstruction
 panel in TensorBoard where it imports.
 
-Samples are RandomResizedCrop(384, bicubic) + flip crops made by PIL on the
+Samples are RandomResizedCrop(img_size, bicubic) + flip crops (the model's
+img_size: 384, or 378 for mae_vit_huge_patch14) made by PIL on the
 loader's threads (or processes) and uploaded ahead of the step from pinned
 memory (``data/loader.py device_prefetch``). With ``--resident_data`` the
 decoded train split lives on the card as a column-major uint8 pool
@@ -178,6 +179,10 @@ class Pretrain:
         meta = common.load_meta(args)
         self.model = model = build_mae_model(args)
         self.device = next(model.parameters()).device
+        # the crop is the model's img_size on both paths: refused here, before
+        # the store and the step, where the model's patches cannot tile it
+        self.img_size = model.cfg.img_size
+        train_store.check_pretrain_crop(self.img_size, model.cfg.patch_size)
         self.outdir = common.ensure_outdir(args) if self.main else (args.output_dir or None)
         logs = self.outdir if self.main else None
         self.jsonl = JsonlLogger(logs)
@@ -188,7 +193,8 @@ class Pretrain:
         if self.resident:
             self.store = train_store.build_pretrain_store(meta, meta.splits["train"], self.device)
         self.train_ds = PretrainDataset(meta, seed=args.seed,
-                                  store=self.store.catalog if self.resident else None)
+                                        store=self.store.catalog if self.resident else None,
+                                        img_size=self.img_size)
         self.train_dl = DataLoader(self.train_ds, args.batch_size, shuffle=True,
                                    num_workers=args.num_workers, drop_last=True, seed=args.seed,
                                    use_processes=args.use_processes, process_index=self.rank,
@@ -229,7 +235,8 @@ class Pretrain:
         t0 = time.perf_counter()
         b, hw, dev = self.args.batch_size // self.world, self.model.cfg.img_size, self.device
         if self.resident:
-            # a valid crop (the warm-up runs it): image 0's top-left 384^2
+            # a valid crop (the warm-up runs it): image 0's top-left hw^2, inside
+            # its stored 384-row layout for every hw up to 384
             i32 = functools.partial(torch.full, dtype=torch.int32, device=dev)
             i8 = functools.partial(torch.zeros, dtype=torch.int8, device=dev)
             batch = {"img_idx": i32((b,), 0), "crop_top": i32((b,), 0),
@@ -272,7 +279,7 @@ class Pretrain:
             with torch.no_grad():
                 imgs = materialize_pretrain_batch(
                     self.store.arrays, {k: batch[k][:1] for k in self.batch_keys},
-                    self.store.max_w)
+                    self.store.max_w, self.img_size)
         else:
             imgs = batch["image"]
         gen = torch.Generator(device=self.device).manual_seed(_recon_seed(self.args.seed, gstep))

@@ -23,7 +23,8 @@
 //
 // What the design does about it:
 //   attn_resident_kernel (N <= attn_resident_max_n<HD>(): 832 keys at
-//     hd 64, 1728 at hd 32, 3520 at hd 16): a block brings its head's
+//     hd 64, 1728 at hd 32, 3520 at hd 16, 640 at hd 80, whose 160-byte
+//     rows come as two swizzled parts, head_part): a block brings its head's
 //     whole K and V into shared memory once, by TMA (a 3-D map over
 //     [B, N, 3C] that zero-fills rows past N), a 64-key chunk per
 //     mbarrier so the first chunk's products start before the last
@@ -322,20 +323,65 @@ inline EncodeTiledFn encode_tiled() {
 // (2 in the address field).
 template <int HD>
 __device__ __forceinline__ uint64_t swz_desc(uint32_t addr) {
+  static_assert(HD == 16 || HD == 32 || HD == 64, "one swizzled part is 16, 32 or 64 wide");
   constexpr uint64_t atom = (8 * HD * 2) >> 4;
   constexpr uint64_t layout = HD == 64 ? 1 : HD == 32 ? 2 : 3;
   return (uint64_t)((addr & 0x3FFFF) >> 4) | (atom << 16) | (atom << 32) | (layout << 62);
 }
 
+// A head's 64-row tile in shared memory. At head dim 16, 32 or 64 it is
+// one part, rows of HD * 2 bytes in the matching swizzle. A 160-byte row
+// (head dim 80) fits no swizzle, so an hd-80 tile is two parts, one after
+// the other: columns 0-63 (8 KB, 128-byte swizzle), then 64-79 (2 KB,
+// 32-byte swizzle); both stay 1024-byte aligned, and the tile is still
+// 64 * HD * 2 bytes. head_part<HD>() is the first part's width.
 template <int HD>
-__device__ __forceinline__ void wgmma_rs_pv(float (&d)[HD / 2], const uint32_t (&a)[4],
-                                            uint64_t db) {
+__host__ __device__ constexpr int head_part() {
+  static_assert(HD == 16 || HD == 32 || HD == 64 || HD == 80, "head dim 16, 32, 64 or 80");
+  return HD == 80 ? 64 : HD;
+}
+
+// The descriptor of k16 step kk along the head dim of a K-major tile
+// (QK^T's operands, kk < HD / 16; unrolled, so the branch is resolved at
+// compile time).
+template <int HD>
+__device__ __forceinline__ uint64_t head_k_desc(uint32_t tile, int kk) {
+  constexpr int A = head_part<HD>();
+  if constexpr (A == HD) {
+    return swz_desc<HD>(tile) + 2 * kk;
+  } else {
+    return kk < A / 16 ? swz_desc<A>(tile) + 2 * kk
+                       : swz_desc<HD - A>(tile + 64 * A * 2) + 2 * (kk - A / 16);
+  }
+}
+
+template <int HD>
+__device__ __forceinline__ void wgmma_rs_part(float (&d)[HD / 2], const uint32_t (&a)[4],
+                                              uint64_t db) {
   if constexpr (HD == 64)
     wgmma_rs_m64n64(d, a, db);
   else if constexpr (HD == 32)
     wgmma_rs_m64n32(d, a, db);
   else
     wgmma_rs_m64n16(d, a, db);
+}
+
+// d += A . B for rows 16kk .. 16kk + 15 of `tile` (the products' k16 step)
+// read MN-major, the head dim along N (PV and its kind). An hd-80 tile
+// takes an n64 and an n16 product, into d[0..31] and d[32..39]: together
+// the n80 accumulator layout.
+template <int HD>
+__device__ __forceinline__ void wgmma_rs_pv(float (&d)[HD / 2], const uint32_t (&a)[4],
+                                            uint32_t tile, int kk) {
+  constexpr int A = head_part<HD>();
+  if constexpr (A == HD) {
+    wgmma_rs_part<HD>(d, a, swz_desc<HD>(tile + kk * 16 * HD * 2));
+  } else {
+    wgmma_rs_part<A>(*reinterpret_cast<float(*)[A / 2]>(&d[0]), a,
+                     swz_desc<A>(tile + kk * 16 * A * 2));
+    wgmma_rs_part<HD - A>(*reinterpret_cast<float(*)[(HD - A) / 2]>(&d[A / 2]), a,
+                          swz_desc<HD - A>(tile + 64 * A * 2 + kk * 16 * (HD - A) * 2));
+  }
 }
 
 template <int HD>
@@ -354,30 +400,61 @@ __host__ __device__ constexpr size_t attn_resident_smem_bytes(int nch, int wgs, 
 }
 
 // x [B, N, width] bf16 as a 3-D tensor map read in boxes of 1 x 64 rows x
-// HD columns (one head of 64 tokens) in the HD*2-byte swizzle that
-// swz_desc describes; rows past N of a batch element read as 0.
-template <int HD>
-cudaError_t make_rows_map(CUtensorMap* map, const bf16* x, int B, int N, int width) {
+// W columns in the W*2-byte swizzle that swz_desc describes; rows past N
+// of a batch element read as 0.
+template <int W>
+cudaError_t encode_rows_map(CUtensorMap* map, const bf16* x, int B, int N, int width) {
   const EncodeTiledFn fn = encode_tiled();
   if (!fn) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)N, (cuuint64_t)B};
   const cuuint64_t strides[2] = {(cuuint64_t)width * sizeof(bf16),
                                  (cuuint64_t)N * width * sizeof(bf16)};
-  const cuuint32_t box[3] = {(cuuint32_t)HD, (cuuint32_t)AK, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)W, (cuuint32_t)AK, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swz = HD == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                 : HD == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                            : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUtensorMapSwizzle swz = W == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : W == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                           : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<bf16*>(x), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// The tensor maps that bring a head's 64-row tile (one head of 64 tokens)
+// in its parts (head_part): one map, or two at head dim 80. A kernel takes
+// them as one __grid_constant__ parameter.
+template <int HD>
+struct HeadMaps {
+  CUtensorMap part[HD == head_part<HD>() ? 1 : 2];
+};
+
+template <int HD>
+cudaError_t make_rows_map(HeadMaps<HD>* maps, const bf16* x, int B, int N, int width) {
+  constexpr int A = head_part<HD>();
+  const cudaError_t err = encode_rows_map<A>(&maps->part[0], x, B, N, width);
+  if constexpr (A == HD) {
+    return err;
+  } else {
+    if (err != cudaSuccess) return err;
+    return encode_rows_map<HD - A>(&maps->part[1], x, B, N, width);
+  }
+}
+
 // qkv [B, N, 3C] in boxes of one head's q, k or v for 64 tokens.
 template <int HD>
-cudaError_t make_qkv_map(CUtensorMap* map, const bf16* qkv, int B, int N, int C) {
-  return make_rows_map<HD>(map, qkv, B, N, 3 * C);
+cudaError_t make_qkv_map(HeadMaps<HD>* maps, const bf16* qkv, int B, int N, int C) {
+  return make_rows_map<HD>(maps, qkv, B, N, 3 * C);
+}
+
+// The tile of a head's 64 tokens from row `row` of batch element `b`, its
+// columns from `col`, into `dst` (1024-byte aligned), in its parts:
+// 64 * HD * 2 bytes in all on `bar`.
+template <int HD>
+__device__ __forceinline__ void tma_load_head(uint32_t dst, const HeadMaps<HD>& maps,
+                                              uint32_t bar, int col, int row, int b) {
+  constexpr int A = head_part<HD>();
+  tma_load_3d(dst, &maps.part[0], bar, col, row, b);
+  if constexpr (A != HD) tma_load_3d(dst + 64 * A * 2, &maps.part[1], bar, col + A, row, b);
 }
 
 // An attribute of the current device, read once per process per
@@ -412,9 +489,9 @@ inline int sm_count() {
 // the number of Q buffers of each warpgroup.
 template <int HD>
 __global__ void __launch_bounds__(128 * ATTN_MAX_WGS, 1) attn_resident_kernel(
-    const __grid_constant__ CUtensorMap map, bf16* __restrict__ att, int N, int C, int H,
+    const __grid_constant__ HeadMaps<HD> map, bf16* __restrict__ att, int N, int C, int H,
     int tiles, float scale, int qbuf) {
-  constexpr uint32_t RB = HD * 2, TILE = AK * RB;
+  constexpr uint32_t TILE = AK * HD * 2;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // 1024-aligned, as the swizzle needs
@@ -452,18 +529,19 @@ __global__ void __launch_bounds__(128 * ATTN_MAX_WGS, 1) attn_resident_kernel(
     const int bh = t / nq, buf = j % qbuf;
     const uint32_t bar = qbar + 8 * (wg * 2 + buf);
     mbar_expect_tx(bar, TILE);
-    tma_load_3d(q_s + (wg * qbuf + buf) * TILE, &map, bar, (bh % H) * HD, (t % nq) * AQ, bh / H);
+    tma_load_head<HD>(q_s + (wg * qbuf + buf) * TILE, map, bar, (bh % H) * HD, (t % nq) * AQ,
+                      bh / H);
   };
   // Head bh's K and V, a chunk per mbarrier, K first.
   auto load_kv = [&](int bh) {
     const int h = bh % H, b = bh / H;
     for (int c = 0; c < nch; ++c) {
       mbar_expect_tx(kbar + 8 * c, TILE);
-      tma_load_3d(k_s + c * TILE, &map, kbar + 8 * c, C + h * HD, c * AK, b);
+      tma_load_head<HD>(k_s + c * TILE, map, kbar + 8 * c, C + h * HD, c * AK, b);
     }
     for (int c = 0; c < nch; ++c) {
       mbar_expect_tx(vbar + 8 * c, TILE);
-      tma_load_3d(v_s + c * TILE, &map, vbar + 8 * c, 2 * C + h * HD, c * AK, b);
+      tma_load_head<HD>(v_s + c * TILE, map, vbar + 8 * c, 2 * C + h * HD, c * AK, b);
     }
   };
   if (leader && t_begin + wg < t_end) load_q(t_begin + wg, 0);
@@ -488,7 +566,7 @@ __global__ void __launch_bounds__(128 * ATTN_MAX_WGS, 1) attn_resident_kernel(
         if (leader) load_q(t + wgs, j + 1);
       }
       mbar_wait(qbar + 8 * (wg * 2 + buf), (j / qbuf) & 1);
-      const uint64_t qd = swz_desc<HD>(q_s + (wg * qbuf + buf) * TILE);
+      const uint32_t qt = q_s + (wg * qbuf + buf) * TILE;
 
       // S = Q K_c^T for chunk c into d (issued and committed, not waited).
       auto s_issue = [&](float (&d)[32], int c) {
@@ -497,7 +575,8 @@ __global__ void __launch_bounds__(128 * ATTN_MAX_WGS, 1) attn_resident_kernel(
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk)
-          wgmma_ss_m64n64(d, qd + 2 * kk, swz_desc<HD>(k_s + c * TILE) + 2 * kk, kk > 0);
+          wgmma_ss_m64n64(d, head_k_desc<HD>(qt, kk), head_k_desc<HD>(k_s + c * TILE, kk),
+                          kk > 0);
         wgmma_commit();
       };
       // Sweep 1: the exact row max of the raw products (scale > 0 keeps
@@ -564,7 +643,7 @@ __global__ void __launch_bounds__(128 * ATTN_MAX_WGS, 1) attn_resident_kernel(
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < AK / 16; ++kk)
-          wgmma_rs_pv<HD>(o, pa[kk], swz_desc<HD>(v_s + c * TILE + kk * 16 * RB));
+          wgmma_rs_pv<HD>(o, pa[kk], v_s + c * TILE, kk);
         if (c + 1 < nch)
           s_issue(sa, c + 1);  // commits the PV with it
         else
@@ -786,7 +865,8 @@ AttnPlan attn_plan(int B, int N, int H) {
 }
 
 // The largest N the resident kernel takes on an H100 (228 KB of shared
-// memory an SM, 227 KB a block, 1 KB reserved a block): 832 at hd 64.
+// memory an SM, 227 KB a block, 1 KB reserved a block): 832 at hd 64, 640
+// at hd 80.
 template <int HD>
 constexpr int attn_resident_max_n() {
   int nch = 1;
@@ -810,7 +890,7 @@ cudaError_t launch_attn(const bf16* qkv, bf16* att, int B, int N, int C, int H,
                                   (int)cudaSharedmemCarveoutMaxShared);
     }();
     if (attr != cudaSuccess) return attr;
-    CUtensorMap map;
+    HeadMaps<HD> map;
     const cudaError_t err = make_qkv_map<HD>(&map, qkv, B, N, C);
     if (err != cudaSuccess) return err;
     const int nq = (N + AQ - 1) / AQ;
@@ -827,7 +907,7 @@ cudaError_t launch_attn(const bf16* qkv, bf16* att, int B, int N, int C, int H,
   return cudaGetLastError();
 }
 
-// The attention core for a head dim of 16, 32 or 64: K and V resident in
+// The attention core for a head dim of 16, 32, 64 or 80: K and V resident in
 // shared memory up to attn_resident_max_n<HD>() keys, two passes past it.
 inline cudaError_t launch_attn_any(const bf16* qkv, bf16* att, int B, int N, int C,
                                    int H, float scale, cudaStream_t stream) {
@@ -835,6 +915,7 @@ inline cudaError_t launch_attn_any(const bf16* qkv, bf16* att, int B, int N, int
     case 16: return launch_attn<16>(qkv, att, B, N, C, H, scale, stream);
     case 32: return launch_attn<32>(qkv, att, B, N, C, H, scale, stream);
     case 64: return launch_attn<64>(qkv, att, B, N, C, H, scale, stream);
+    case 80: return launch_attn<80>(qkv, att, B, N, C, H, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -847,6 +928,7 @@ inline AttnPlan attn_plan_any(int B, int N, int C, int H) {
     case 16: return attn_plan<16>(B, N, H);
     case 32: return attn_plan<32>(B, N, H);
     case 64: return attn_plan<64>(B, N, H);
+    case 80: return attn_plan<80>(B, N, H);
     default: return {0, 0, 0, 0, 0, 0};
   }
 }
@@ -856,6 +938,7 @@ inline int attn_resident_max_n_any(int hd) {
     case 16: return attn_resident_max_n<16>();
     case 32: return attn_resident_max_n<32>();
     case 64: return attn_resident_max_n<64>();
+    case 80: return attn_resident_max_n<80>();
     default: return 0;
   }
 }

@@ -59,6 +59,9 @@
 //      on to the next step meanwhile. A producer warp streams Q, dO (TMA,
 //      zero-filled past N) and the row statistics (bulk copy) through a
 //      3-stage mbarrier ring, and the next round's K and V ahead of it.
+//      At head dim 80 (ViT-H/14) the tiles come in two swizzled parts
+//      (attention.cuh head_part) and two warpgroups hold a key block each
+//      (bwd_wg): three would not fit shared memory or the register file.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (no --use_fast_math). Plain C interface, bound
@@ -70,10 +73,21 @@ namespace {
 
 constexpr int BT = 64;          // rows of a block tile and of a chunk
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int BWD_WG = 3;       // consumer warpgroups of the main pass, a key block each
 constexpr int BWD_STAGES = 3;   // Q / dO / statistics ring
-constexpr int BWD_THREADS = 128 * BWD_WG + 32;  // + one producer warp
 constexpr int STAT_FLOATS = 2 * BT;  // m2 + log2 l, D of one query block
+
+// Consumer warpgroups of the main pass, a key block each: 3, or 2 at head
+// dim 80, where three would need 236 KB of shared memory (over the 227 KB
+// a block may take) and hold 144 accumulator registers a thread (dK, dV,
+// S^T, dP^T) under the 152 that 416 threads may have.
+template <int HD>
+__host__ __device__ constexpr int bwd_wg() {
+  return HD == 80 ? 2 : 3;
+}
+template <int HD>
+__host__ __device__ constexpr int bwd_threads() {
+  return 128 * bwd_wg<HD>() + 32;  // + one producer warp
+}
 
 // ---- pass 1: row statistics (mma.sync) ----
 
@@ -242,7 +256,7 @@ __global__ void __launch_bounds__(ATTN_THREADS) bwd_stats_kernel(
 
 // d += A . B with A and B both read MN-major from shared memory (A's rows
 // contiguous: dS^T staged as [keys][queries]; B: K as [keys][hd]),
-// m64 x n(HD) x k16.
+// m64 x n(HD) x k16 for a one-part tile.
 __device__ __forceinline__ void wgmma_ss_tt_m64n64(float (&d)[32], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\n"
@@ -282,13 +296,28 @@ __device__ __forceinline__ void wgmma_ss_tt_m64n16(float (&d)[8], uint64_t da, u
       : "l"(da), "l"(db), "r"(1));
 }
 template <int HD>
-__device__ __forceinline__ void wgmma_ss_tt(float (&d)[HD / 2], uint64_t da, uint64_t db) {
+__device__ __forceinline__ void wgmma_ss_tt_part(float (&d)[HD / 2], uint64_t da, uint64_t db) {
   if constexpr (HD == 64)
     wgmma_ss_tt_m64n64(d, da, db);
   else if constexpr (HD == 32)
     wgmma_ss_tt_m64n32(d, da, db);
   else
     wgmma_ss_tt_m64n16(d, da, db);
+}
+// The same with B rows 16kk .. 16kk + 15 of a head tile (head_part): at
+// head dim 80 an n64 and an n16 product into d[0..31] and d[32..39].
+template <int HD>
+__device__ __forceinline__ void wgmma_ss_tt(float (&d)[HD / 2], uint64_t da, uint32_t tile,
+                                            int kk) {
+  constexpr int A = head_part<HD>();
+  if constexpr (A == HD) {
+    wgmma_ss_tt_part<HD>(d, da, swz_desc<HD>(tile + kk * 16 * HD * 2));
+  } else {
+    wgmma_ss_tt_part<A>(*reinterpret_cast<float(*)[A / 2]>(&d[0]), da,
+                        swz_desc<A>(tile + kk * 16 * A * 2));
+    wgmma_ss_tt_part<HD - A>(*reinterpret_cast<float(*)[(HD - A) / 2]>(&d[A / 2]), da,
+                             swz_desc<HD - A>(tile + 64 * A * 2 + kk * 16 * (HD - A) * 2));
+  }
 }
 
 // Bulk copy of `bytes` (a multiple of 16) global -> shared, completing
@@ -330,13 +359,13 @@ __device__ __forceinline__ void store_acc(bf16* out, size_t stride, const float 
 
 constexpr uint32_t DS_TILE = BT * BT * sizeof(bf16);  // a staged 64 x 64 bf16 dS^T
 
-// 1 KB alignment slack; K and V of 2 rounds x BWD_WG key blocks; the ring
-// of Q and dO tiles; 2 x BWD_WG staged dS^T tiles; the ring's statistics; the
-// barriers: 199,280 bytes at HD = 64.
+// 1 KB alignment slack; K and V of 2 rounds x bwd_wg key blocks; the ring
+// of Q and dO tiles; 2 x bwd_wg staged dS^T tiles; the ring's statistics; the
+// barriers: 199,280 bytes at HD = 64, 178,800 at HD = 80 (2 warpgroups).
 template <int HD>
 __host__ __device__ constexpr size_t main_smem_bytes() {
-  return 1024 + (size_t)(4 * BWD_WG + 2 * BWD_STAGES) * BT * HD * sizeof(bf16) +
-         2 * BWD_WG * DS_TILE + BWD_STAGES * STAT_FLOATS * sizeof(float) +
+  return 1024 + (size_t)(4 * bwd_wg<HD>() + 2 * BWD_STAGES) * BT * HD * sizeof(bf16) +
+         2 * bwd_wg<HD>() * DS_TILE + BWD_STAGES * STAT_FLOATS * sizeof(float) +
          (2 * BWD_STAGES + 8) * 8;
 }
 
@@ -348,11 +377,12 @@ __host__ __device__ constexpr size_t main_smem_bytes() {
 // query block, the owning warpgroup's fp32 dQ registers (register e of
 // thread t at e * 128 + t).
 template <int HD>
-__global__ void __launch_bounds__(BWD_THREADS, 1) bwd_main_kernel(
-    const __grid_constant__ CUtensorMap qkv_map, const __grid_constant__ CUtensorMap do_map,
+__global__ void __launch_bounds__(bwd_threads<HD>(), 1) bwd_main_kernel(
+    const __grid_constant__ HeadMaps<HD> qkv_map, const __grid_constant__ HeadMaps<HD> do_map,
     const float* __restrict__ stats, float* __restrict__ dq_acc, bf16* __restrict__ dqkv,
     int N, int C, int H, float scale, float scale2) {
-  constexpr uint32_t RB = HD * 2, TILE = BT * RB;
+  constexpr int BWD_WG = bwd_wg<HD>();
+  constexpr uint32_t TILE = BT * HD * 2;
   constexpr int CONSUMERS = 128 * BWD_WG;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -404,16 +434,16 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) bwd_main_kernel(
         mbar_expect_tx(kv_full + 8 * buf, active * 2 * TILE);
         for (int f = 0; f < active; ++f) {
           const int k0 = (r * BWD_WG + f) * BT;
-          tma_load_3d(k_tile(buf, f), &qkv_map, kv_full + 8 * buf, C + h * HD, k0, b);
-          tma_load_3d(v_tile(buf, f), &qkv_map, kv_full + 8 * buf, 2 * C + h * HD, k0, b);
+          tma_load_head<HD>(k_tile(buf, f), qkv_map, kv_full + 8 * buf, C + h * HD, k0, b);
+          tma_load_head<HD>(v_tile(buf, f), qkv_map, kv_full + 8 * buf, 2 * C + h * HD, k0, b);
         }
         for (int qb = 0; qb < nq; ++qb) {
           const int g = r * nq + qb, s = g % BWD_STAGES;
           mbar_wait(empty_bar + 8 * s, ((g / BWD_STAGES) & 1) ^ 1);
           mbar_expect_tx(full_bar + 8 * s, 2 * TILE + STAT_FLOATS * sizeof(float));
           const uint32_t q_t = ring_s + 2 * s * TILE;
-          tma_load_3d(q_t, &qkv_map, full_bar + 8 * s, h * HD, qb * BT, b);
-          tma_load_3d(q_t + TILE, &do_map, full_bar + 8 * s, h * HD, qb * BT, b);
+          tma_load_head<HD>(q_t, qkv_map, full_bar + 8 * s, h * HD, qb * BT, b);
+          tma_load_head<HD>(q_t + TILE, do_map, full_bar + 8 * s, h * HD, qb * BT, b);
           bulk_load(st_s + s * STAT_FLOATS * sizeof(float), st_bh + (size_t)qb * STAT_FLOATS,
                     STAT_FLOATS * sizeof(float), full_bar + 8 * s);
         }
@@ -450,10 +480,10 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) bwd_main_kernel(
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk)
-          wgmma_ss_m64n64(sc, swz_desc<HD>(kt) + 2 * kk, swz_desc<HD>(qt) + 2 * kk);
+          wgmma_ss_m64n64(sc, head_k_desc<HD>(kt, kk), head_k_desc<HD>(qt, kk));
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk)
-          wgmma_ss_m64n64(dp, swz_desc<HD>(vt) + 2 * kk, swz_desc<HD>(dt) + 2 * kk);
+          wgmma_ss_m64n64(dp, head_k_desc<HD>(vt, kk), head_k_desc<HD>(dt, kk));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(sc);
@@ -486,10 +516,10 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) bwd_main_kernel(
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BT / 16; ++kk)
-          wgmma_rs_pv<HD>(dv, pa[kk], swz_desc<HD>(dt + kk * 16 * RB));
+          wgmma_rs_pv<HD>(dv, pa[kk], dt, kk);
 #pragma unroll
         for (int kk = 0; kk < BT / 16; ++kk)
-          wgmma_rs_pv<HD>(dk, da[kk], swz_desc<HD>(qt + kk * 16 * RB));
+          wgmma_rs_pv<HD>(dk, da[kk], qt, kk);
         wgmma_commit();
         // Stage bf16 dS^T [keys][queries] in the 128-byte swizzle while
         // the products run, once the dQ step two steps back has read the
@@ -533,7 +563,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) bwd_main_kernel(
 #pragma unroll
           for (int kk = 0; kk < BT / 16; ++kk)
             wgmma_ss_tt<HD>(dq, swz_desc<64>(ds_g + f * DS_TILE + kk * 16 * 128),
-                            swz_desc<HD>(k_tile(buf, f) + kk * 16 * RB));
+                            k_tile(buf, f), kk);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dq);
@@ -582,11 +612,11 @@ cudaError_t launch_bwd(const bf16* qkv, const bf16* dout, void* scratch, bf16* d
       qkv, dout, stats, N, C, H, scale2);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  CUtensorMap qmap, dmap;
+  HeadMaps<HD> qmap, dmap;
   if ((err = make_qkv_map<HD>(&qmap, qkv, B, N, C)) ||
       (err = make_rows_map<HD>(&dmap, dout, B, N, C)))
     return err;
-  bwd_main_kernel<HD><<<B * H, BWD_THREADS, main_smem_bytes<HD>(), s>>>(
+  bwd_main_kernel<HD><<<B * H, bwd_threads<HD>(), main_smem_bytes<HD>(), s>>>(
       qmap, dmap, stats, dq_acc, dqkv, N, C, H, scale, scale2);
   return cudaGetLastError();
 }
@@ -597,7 +627,7 @@ extern "C" {
 
 // B3: att [B, N, C] = attention(q, k, v) for qkv [B, N, 3C] bf16 (q | k |
 // v, head h at columns h*HD of each). scale = hd^-0.5 * log2(e). Device
-// pointers, 16-byte aligned; C % 8 == 0, C / H in {16, 32, 64}.
+// pointers, 16-byte aligned; C % 8 == 0, C / H in {16, 32, 64, 80}.
 int attn_forward(const void* qkv, void* att, int B, int N, int C, int H, float scale,
                  void* stream) {
   if (C % 8 != 0 || C % H != 0) return (int)cudaErrorInvalidValue;
@@ -620,7 +650,7 @@ int attn_core_plan(int B, int N, int C, int H, long long* plan) {
 }
 
 // The largest N whose K and V the core holds in shared memory, for a
-// head dim of 16, 32 or 64 (0 otherwise).
+// head dim of 16, 32, 64 or 80 (0 otherwise).
 int attn_core_max_n(int hd) { return attn_resident_max_n_any(hd); }
 
 // The bytes of scratch attn_backward takes for these sizes.
@@ -642,6 +672,7 @@ int attn_backward(const void* qkv, const void* dout, void* scratch, void* dqkv, 
     case 16: return (int)launch_bwd<16>(q, g, scratch, d, B, N, C, H, scale, s);
     case 32: return (int)launch_bwd<32>(q, g, scratch, d, B, N, C, H, scale, s);
     case 64: return (int)launch_bwd<64>(q, g, scratch, d, B, N, C, H, scale, s);
+    case 80: return (int)launch_bwd<80>(q, g, scratch, d, B, N, C, H, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -622,17 +622,21 @@ def _blend_mosaic(cells_img, cells_den, bl: int, resize_l: int):
 
 
 class PretrainDataset:
-    """RandomResizedCrop(384, scale=(0.2, 1.0), bicubic) + horizontal flip
-    over the train split's images (reference: util/FSC147.py:360-365).
+    """RandomResizedCrop(img_size, scale=(0.2, 1.0), bicubic) + horizontal
+    flip over the train split's images (reference: util/FSC147.py:360-365,
+    which crops 384; ``img_size`` is the model's, 378 for ViT-H/14).
 
-    Returns {'image' [384,384,3] float32, 'name'}. With ``store`` (the
-    resident store's host catalog, ``engine/train_store.py
+    Returns {'image' [img_size, img_size, 3] float32, 'name'}. With
+    ``store`` (the resident store's host catalog, ``engine/train_store.py
     PretrainStore.catalog``) the host ships only the crop's scalars
     (``_store_item``, ~30 bytes a sample) and the card materialises the
-    pixels."""
+    pixels at the model's size. The crop's draw does not depend on
+    ``img_size``."""
 
-    def __init__(self, meta: FSC147Meta, split: str = "train", seed: int = 0, store=None):
+    def __init__(self, meta: FSC147Meta, split: str = "train", seed: int = 0, store=None,
+                 img_size: int = IMG_SIZE):
         self.meta = meta
+        self.img_size = img_size
         self.ids = meta.splits[split]
         self.seed = seed
         self.epoch = 0
@@ -705,8 +709,8 @@ class PretrainDataset:
             img = Image.fromarray(cached[0])
         w0, h0 = img.size
         top, left, ch, cw = self.sample_crop(rng, h0, w0)
-        crop = img.crop((left, top, left + cw, top + ch)).resize((IMG_SIZE, IMG_SIZE),
-                                                                  Image.BICUBIC)
+        crop = img.crop((left, top, left + cw, top + ch)).resize(
+            (self.img_size, self.img_size), Image.BICUBIC)
         out = np.asarray(crop, np.float32) / 255.0
         if rng.random() < 0.5:
             out = out[:, ::-1].copy()

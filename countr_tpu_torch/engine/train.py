@@ -801,17 +801,19 @@ def make_store_pretrain_step(
     (``train_store.PRETRAIN_KEYS``, from ``PretrainDataset(store=...)``) on
     the store's device, ~30 bytes a sample; the step materialises the
     RandomResizedCrop + flip from ``store_arrays`` (``PretrainStore.arrays``,
-    read in place) with its two fp32 band products, then trains as
-    ``make_pretrain_step`` does. Noise, graphs and ``graphed`` as there."""
+    read in place) with its two fp32 band products, at the model's
+    ``img_size``, then trains as ``make_pretrain_step`` does. Noise, graphs
+    and ``graphed`` as there."""
     from countr_tpu_torch.engine.train_store import PRETRAIN_KEYS, materialize_pretrain_batch
 
     gen = _generator(state, cfg, generator)
     n = len(PRETRAIN_KEYS)
+    size = state.model.cfg.img_size
 
     def device_step(*ins, update: bool) -> Dict:
         with torch.no_grad():
             imgs = materialize_pretrain_batch(store_arrays, dict(zip(PRETRAIN_KEYS, ins[:n])),
-                                              max_w)
+                                              max_w, size)
         return _pretrain_device(state, imgs, ins[n] if len(ins) > n else None, gen, update)
 
     return _train_step(state, device_step, gen, graphed, lambda batch, noise=None: (

@@ -530,13 +530,27 @@ def _bicubic_band(n_src: int, start: torch.Tensor, length: torch.Tensor,
 PRETRAIN_KEYS = ("img_idx", "crop_top", "crop_left", "crop_h", "crop_w", "transposed", "flip")
 
 
-def materialize_pretrain_batch(store_arrays: Dict, batch: Dict, max_w: int) -> torch.Tensor:
-    """RandomResizedCrop(384, bicubic) + horizontal flip on the store's
-    device (the JAX ``materialize_pretrain_batch``).
+def check_pretrain_crop(img_size: int, patch_size: int) -> None:
+    """Raise ValueError where ``materialize_pretrain_batch`` (or the host
+    path's crop) cannot make the model's input: a crop side that is not a
+    positive multiple of the model's patch, whose patch grid would drop
+    pixels that the loss's patchify then cannot split."""
+    if img_size <= 0 or patch_size <= 0 or img_size % patch_size:
+        raise ValueError(
+            f"the pretrain crop is img_size x img_size = {img_size} px, which {patch_size}-px "
+            f"patches do not tile: the store and the host loader crop to the model's "
+            f"img_size, so the preset needs an img_size that is a multiple of its patch_size")
+
+
+def materialize_pretrain_batch(store_arrays: Dict, batch: Dict, max_w: int,
+                               out: int = IMG_SIZE) -> torch.Tensor:
+    """RandomResizedCrop(out, bicubic) + horizontal flip on the store's
+    device (the JAX ``materialize_pretrain_batch``, which crops 384).
 
     batch: img_idx [B]; crop_top / crop_left / crop_h / crop_w [B] (the crop
-    in stored coordinates); transposed [B]; flip [B]. Returns [B, 384, 384,
-    3] float32 in [0, 1].
+    in stored coordinates); transposed [B]; flip [B]. Returns [B, out, out,
+    3] float32 in [0, 1]: the model's img_size (378 for ViT-H/14); the
+    stored images and the crop's draw are those of 384 whatever ``out``.
 
     Each sample's slab is ``max_w * 384`` pixels from its base, gathered at
     base + arange: a static length, so nothing is read back to the host
@@ -553,8 +567,8 @@ def materialize_pretrain_batch(store_arrays: Dict, batch: Dict, max_w: int) -> t
     idx = batch["img_idx"].long()
     flat = px[store_arrays["base"][idx][:, None] + torch.arange(n, device=px.device)]
     img = flat.reshape(-1, max_w, IMG_SIZE, 3).float() * INV_255  # [B, x_stored, y_stored, 3]
-    wy = _bicubic_band(IMG_SIZE, batch["crop_top"], batch["crop_h"])  # [B, 384 src, 384 out]
-    wx = _bicubic_band(max_w, batch["crop_left"], batch["crop_w"])  # [B, max_w, 384 out]
+    wy = _bicubic_band(IMG_SIZE, batch["crop_top"], batch["crop_h"], out)  # [B, 384 src, out]
+    wx = _bicubic_band(max_w, batch["crop_left"], batch["crop_w"], out)  # [B, max_w, out]
     with fp32_products():
         out = torch.einsum("bxyc,bxo->boyc", img, wx)
         out = torch.einsum("boyc,byj->bojc", out, wy)

@@ -33,7 +33,10 @@ to the value dtype, division after PV) and ``attention_bwd_plain`` (B4's,
 op for op: natural-exp P normalised in fp32, D from the fp32 P and dP).
 On a CUDA tensor it launches the kernels or raises.
 ``fused_attention.launches`` and ``fused_attention.bwd_launches`` count
-kernel launches.
+kernel launches; ``launches_h80`` and ``bwd_launches_h80`` the share of
+them at head dim 80, whose 160-byte rows the kernels bring in two
+swizzled parts (64 + 16 columns) and whose B4 main pass runs two
+warpgroups a block instead of three.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ import torch
 from countr_tpu_torch.ops.cuda_build import build_library, launch
 
 LOG2E = 1.4426950408889634
-HEAD_DIMS = (16, 32, 64)
+HEAD_DIMS = (16, 32, 64, 80)
 
 
 def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -138,7 +141,8 @@ def core_plan(b: int, n: int, c: int, num_heads: int) -> dict:
 
 def resident_max_n(hd: int) -> int:
     """The largest N whose K and V the attention core holds in shared
-    memory at head dim ``hd`` (16, 32 or 64). Builds the library."""
+    memory at head dim ``hd`` (16, 32, 64 or 80; 0 for another). Builds
+    the library."""
     return _lib()[0].attn_core_max_n(hd)
 
 
@@ -174,6 +178,8 @@ def _launch_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     launch("fused_attention", lib.attn_forward, lib.attn_error_string, qkv.device,
            qkv, att, b, n, c, num_heads, hd ** -0.5 * LOG2E)
     fused_attention.launches += 1
+    if hd == 80:
+        fused_attention.launches_h80 += 1
     return att
 
 
@@ -187,6 +193,8 @@ def _launch_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Ten
     launch("fused_attention", lib.attn_backward, lib.attn_error_string, qkv.device,
            qkv, g, scratch, dqkv, b, n, c, num_heads, hd ** -0.5)
     fused_attention.bwd_launches += 1
+    if hd == 80:
+        fused_attention.bwd_launches_h80 += 1
     return dqkv
 
 
@@ -245,3 +253,6 @@ def fused_attention(q, k, v, num_heads: int) -> torch.Tensor:
 
 fused_attention.launches = 0
 fused_attention.bwd_launches = 0
+# the launches of those at head dim 80 (ViT-H/14), counted in both
+fused_attention.launches_h80 = 0
+fused_attention.bwd_launches_h80 = 0

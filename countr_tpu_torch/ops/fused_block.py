@@ -54,10 +54,13 @@ import torch.nn.functional as F
 
 from countr_tpu_torch.ops import fused_attn
 from countr_tpu_torch.ops.cuda_build import activation, build_library, launch, operand
-from countr_tpu_torch.ops.fused_attn import HEAD_DIMS, LOG2E, attention_exp2
+from countr_tpu_torch.ops.fused_attn import LOG2E, attention_exp2
 from countr_tpu_torch.ops.norms import layer_norm
 
 MAX_C = 2048  # the LN pass holds a row in one warp's registers
+# B2's head dims: the attention core's but 80 (ViT-H/14's, which only the
+# pretrain build runs, with B2 off)
+HEAD_DIMS = (16, 32, 64)
 ENTRY = "fused_attention_block"
 
 

@@ -30,7 +30,11 @@ N = 1, 577 and 641, where the attention core holds K and V in shared
 memory, and B3 at N = 832 and 833 at head dim 64, the last N it holds
 and the first past it (the two-pass route). B3 and B4 also on logits
 scaled x8 (one key dominates each row) at the same limit, and B3 and B4
-give the same bits on two calls.
+give the same bits on two calls. B3 and B4 at head dim 80 (ViT-H/14's
+encoder) at its pretrain shape, ragged N, the resident limit of 640 keys
+and past it, x8 logits, the same bounds, counted by the hd-80 counters
+too, and the same bits on two calls; the ViT-H decoder's [32, 729, 512]
+at head dim 32.
 """
 
 import numpy as np
@@ -131,22 +135,33 @@ RESIDENT_LIMIT_SHAPES = [(1, 832, 128, 2), (1, 833, 128, 2)]
 # Logits scaled x8 (q times 8): one key dominates each row, so B4's online
 # row statistics rescale their sums as the max grows; every head dim.
 ATTN_X8_SHAPES = [(8, 576, 512, 16), (2, 100, 128, 2), (2, 70, 48, 3), (1, 641, 64, 4)]
+# Head dim 80 (ViT-H/14's encoder, 16 heads of 80: tiles in two swizzled
+# parts, B4's main pass on 2 warpgroups): its pretrain step's [32, 364,
+# 1280], ragged N, the resident limit (640 keys) and past it (two-pass);
+# and the ViT-H decoder's [32, 729, 512] at head dim 32.
+HD80_SHAPES = [(32, 364, 1280, 16), (2, 100, 160, 2), (3, 37, 240, 3), (1, 640, 160, 2),
+               (1, 641, 80, 1), (32, 729, 512, 16)]
+HD80_X8_SHAPES = [(2, 100, 160, 2), (1, 641, 80, 1)]
 
 
 @pytest.mark.parametrize("b,n,c,h,logit_scale", [s + (1.0,) for s in ATTN_SHAPES]
                          + [s + (1.0,) for s in RESIDENT_LIMIT_SHAPES]
-                         + [s + (8.0,) for s in ATTN_X8_SHAPES])
+                         + [s + (8.0,) for s in ATTN_X8_SHAPES]
+                         + [s + (1.0,) for s in HD80_SHAPES]
+                         + [s + (8.0,) for s in HD80_X8_SHAPES])
 def test_fused_attention_matches_plain(cuda_device, b, n, c, h, logit_scale):
     rng = np.random.default_rng(2)
     qkv = _t(rng, (b, n, 3 * c), cuda_device, dtype=torch.bfloat16)
     qkv[..., :c] *= logit_scale  # exact: a power of 2
     g = _t(rng, (b, n, c), cuda_device, dtype=torch.bfloat16)
-    n0, m0 = fused_attention.launches, fused_attention.bwd_launches
+    counters = ("launches", "bwd_launches", "launches_h80", "bwd_launches_h80")
+    before = [getattr(fused_attention, k) for k in counters]
     with torch.no_grad():
         got = fused_attention_qkv(qkv, h)
         dgot = fused_attention_bwd(qkv, g, h)
     torch.cuda.synchronize()
-    assert (fused_attention.launches, fused_attention.bwd_launches) == (n0 + 1, m0 + 1)
+    h80 = int(c // h == 80)  # the hd-80 counters count those launches too
+    assert [getattr(fused_attention, k) - v for k, v in zip(counters, before)] == [1, 1, h80, h80]
     q, k, v = qkv.chunk(3, dim=-1)
     want = attention_exp2(q, k, v, h)
     dwant = torch.cat(attention_bwd_plain(q, k, v, g, h), dim=-1)
@@ -158,17 +173,22 @@ def test_fused_attention_matches_plain(cuda_device, b, n, c, h, logit_scale):
 
 def test_attention_core_routes(cuda_device):
     """The resident route takes every N up to its limit (832 keys at head
-    dim 64) and the two-pass route the N past it; the card tests' shapes
-    at and past the limit run one each."""
-    assert resident_max_n(64) == 832
+    dim 64, 640 at 80) and the two-pass route the N past it; the card
+    tests' shapes at and past the limit run one each. ViT-H/14's encoder
+    shape runs 4 warpgroups with 2 Q buffers, one block an SM."""
+    assert (resident_max_n(64), resident_max_n(80)) == (832, 640)
     assert [core_plan(*s)["resident"] for s in RESIDENT_LIMIT_SHAPES] == [1, 0]
+    assert [core_plan(*s)["resident"] for s in HD80_SHAPES[3:5]] == [1, 0]
     for b, n, c, h in ATTN_SHAPES:
         plan = core_plan(b, n, c, h)
         assert plan["resident"] == 1 and plan["blocks"] >= 1, (b, n, c, h, plan)
+    plan = core_plan(*HD80_SHAPES[0])
+    assert (plan["resident"], plan["warpgroups"], plan["q_buffers"],
+            plan["blocks_per_sm"]) == (1, 4, 2, 1), plan
 
 
 @pytest.mark.parametrize("b,n,c,h", [(8, 576, 512, 16), (16, 576, 768, 12), (2, 577, 128, 2),
-                                     (1, 833, 128, 2)])
+                                     (1, 833, 128, 2), (32, 364, 1280, 16), (1, 641, 80, 1)])
 def test_fused_attention_is_deterministic(cuda_device, b, n, c, h):
     """B3 gives the same bits on two calls with the same inputs (each
     query row's sums are taken in a fixed order by one warpgroup)."""
@@ -180,7 +200,8 @@ def test_fused_attention_is_deterministic(cuda_device, b, n, c, h):
         assert torch.equal(fused_attention_qkv(qkv, h), first)
 
 
-@pytest.mark.parametrize("b,n,c,h", [(8, 576, 512, 16), (16, 288, 768, 12), (2, 577, 128, 2)])
+@pytest.mark.parametrize("b,n,c,h", [(8, 576, 512, 16), (16, 288, 768, 12), (2, 577, 128, 2),
+                                     (32, 364, 1280, 16), (1, 641, 80, 1)])
 def test_fused_attention_bwd_is_deterministic(cuda_device, b, n, c, h):
     """B4 gives the same bits on two calls with the same inputs (each
     (batch, head) is one block that adds its dQ partials in a fixed
