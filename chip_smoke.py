@@ -31,7 +31,18 @@ Phases, one line each on stdout:
      backward graph-replayed, less SDPA's forward; B4's line also gives
      each of its two passes' device ms, from torch.profiler), with a
      `core` line per shape: how the attention core runs there (route,
-     blocks launched, blocks per SM, shared bytes per block);
+     blocks launched, blocks per SM, shared bytes per block); B1's
+     backward (B1bwd, ops/fused_ln.py; measured last, beside ViT-H/14's
+     kernel lines) at the training steps' LayerNorm shapes ([4608, 768],
+     [9216, 512], [11648, 1280], [23328, 512])
+     against layer_norm_bwd_plain, the same bits on two calls, beside
+     the bytes bound, the plain version and ATen's
+     native_layer_norm_backward. Every training replay and eager step
+     below launches B1bwd once a LayerNorm whose gradient is asked,
+     besides the counts it names: 19 a finetune train step (the frozen
+     encoder's 25 LayerNorms run under no_grad), 44 unfrozen, 42 a
+     pretrain step (22 with B2 on), 82 a ViT-H/14 one; none on the
+     counting and eval paths;
   3b. adamw: the training state's fused AdamW update (ops/fused_adamw.py)
      at mae_base's 251 trainable tensors (111,654,912 fp32): three
      updates of the kernel against its plain version from the same state,
@@ -435,6 +446,65 @@ def ln_phase(torch, dev, sizes=((WINDOWS * 576, 768), (WINDOWS * 576, 512))):
             eager_ms=time_ms(torch, kernel, args),
         ))
         say("kernel", name="B1 fused_layer_norm", **shapes[-1])
+    return shapes
+
+
+# B1's backward (B1bwd) at the training steps' LayerNorm shapes: mae_base's
+# pretrain encoder and decoder, ViT-H/14's encoder and decoder. dx within
+# one bf16 ulp of max|ref|; dscale and dbias within 1e-5 of max|ref| (fp32
+# sums over up to 23,328 rows in another order).
+LN_BWD_SHAPES = ((PRETRAIN_BATCH * 288, 768), (PRETRAIN_BATCH * 576, 512)) + HUGE_LN_SHAPES
+
+
+def ln_bwd_phase(torch, dev, sizes=LN_BWD_SHAPES):
+    """B1bwd against ``layer_norm_bwd_plain`` at each shape, the same bits
+    on two calls, one B1bwd a call; its graph-replayed ms beside the bytes
+    bound (x and g read, dx written in bf16; the two fp32 gradients), the
+    plain version's and the library's (ATen's ``native_layer_norm_backward``,
+    the kernel behind ``F.layer_norm``'s autograd backward, with bf16
+    weights as the forward's library line)."""
+    from countr_tpu_torch.ops.fused_ln import fused_layer_norm, fused_layer_norm_bwd, \
+        layer_norm_bwd_plain
+
+    rng = np.random.default_rng(3)
+    shapes = []
+    for rows, c in sizes:
+        sets = [tuple(randn_on(torch, rng, dev, (rows, c)) for _ in range(2)) for _ in range(4)]
+        s = randn_on(torch, rng, dev, (c,), 0.05, 1.0, torch.float32)
+        b = randn_on(torch, rng, dev, (c,), 0.05, 0.0, torch.float32)
+        x, g = sets[0]
+        n0 = fused_layer_norm.bwd_launches
+        t0 = time.perf_counter()
+        got = fused_layer_norm_bwd(x, s, b, g, 1e-6)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        again = fused_layer_norm_bwd(x, s, b, g, 1e-6)
+        torch.cuda.synchronize()
+        want = layer_norm_bwd_plain(x, s, b, g, 1e-6)
+        dx_lim = 2.0 ** (np.floor(np.log2(float(want[0].float().abs().max()))) - 7)
+        errs = [max_abs(a, w) for a, w in zip(got, want)]
+        lims = [dx_lim] + [1e-5 * float(w.abs().max()) for w in want[1:]]
+        if not all(e <= lim for e, lim in zip(errs, lims)):
+            raise AssertionError(f"B1bwd [{rows},{c}] max|d| {errs} > {lims}")
+        if not all(torch.equal(p, q) for p, q in zip(got, again)):
+            raise AssertionError(f"B1bwd [{rows},{c}]: two calls gave other bits")
+        if fused_layer_norm.bwd_launches != n0 + 2:
+            raise AssertionError(f"B1bwd [{rows},{c}]: {fused_layer_norm.bwd_launches - n0} "
+                                 "launches counted for 2 calls")
+        sb, bb = s.to(torch.bfloat16), b.to(torch.bfloat16)
+        lib = [(gg, xx, *torch.ops.aten.native_layer_norm(xx, (c,), sb, bb, 1e-6)[1:])
+               for xx, gg in sets]
+        shapes.append(dict(
+            shape=[rows, c], max_abs_err=errs[0], weight_grad_errs=errs[1:], limits=lims,
+            first_call_s=first_s,
+            ms=graph_ms(torch, lambda x, g: fused_layer_norm_bwd(x, s, b, g, 1e-6), sets),
+            plain_ms=graph_ms(torch, lambda x, g: layer_norm_bwd_plain(x, s, b, g, 1e-6), sets),
+            library_ms=graph_ms(torch, lambda g, x, mean, rstd: torch.ops.aten.
+                                native_layer_norm_backward(g, x, (c,), mean, rstd, sb, bb,
+                                                           [True, True, True]), lib),
+            bound_ms=(6 * rows * c + 8 * c) / H100_BYTES_PER_S * 1e3, bound_by="bytes",
+        ))
+        say("kernel", name="B1bwd fused_layer_norm backward", **shapes[-1])
     return shapes
 
 
@@ -990,7 +1060,7 @@ def profile_run(torch, run, steps: int):
     kernels = [r for r in rows if not r[0].startswith(("aten::", "Optimizer.", "autograd::"))]
     kernels.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in kernels)
-    ours = ("_ln_fwd", "ln_rows_kernel", "gemm_nt_kernel", "cross_block_kernel",
+    ours = ("_ln_fwd", "_ln_bwd", "ln_rows_kernel", "gemm_nt_kernel", "cross_block_kernel",
             "attn_resident_kernel", "attn_twopass_kernel", "bwd_stats_kernel", "bwd_main_kernel")
     return dict(
         wall_ms=wall_ms, device_busy_ms=busy, idle_share=max(0.0, 1 - busy / wall_ms),
@@ -1056,7 +1126,7 @@ def count_phase(torch, model):
     if results[-1].n_windows != 36:
         raise AssertionError(f"grid image ran {results[-1].n_windows} windows, not 36")
     if launches != {"B1": 26 * batches, "B2": 18 * batches, "B3": 0, "B4": 0, "B5": 0,
-                    "B6": 0, "AdamW": 0, "B3h80": 0, "B4h80": 0} or batches == 0:
+                    "B6": 0, "AdamW": 0, "B3h80": 0, "B4h80": 0, "B1bwd": 0} or batches == 0:
         raise AssertionError(f"launches {launches} for {batches} window batches")
     say("count_launches", window_batches=batches, **launches)
     return launches
@@ -1122,7 +1192,7 @@ def graph_phase(torch, engine):
     replays = graphed.runner.replays
     per_replay = {k: v / replays for k, v in graphed.runner.launched.items()}
     if per_replay != {"B1": 26, "B2": 18, "B3": 0, "B4": 0, "B5": 0, "B6": 0, "AdamW": 0,
-                      "B3h80": 0, "B4h80": 0}:
+                      "B3h80": 0, "B4h80": 0, "B1bwd": 0}:
         raise AssertionError(f"graphed forward: launches per replay {per_replay}")
 
     saved = {k: v.clone() for k, v in model.state_dict().items()}
@@ -1176,7 +1246,7 @@ def count_batch_phase(torch, engine):
         len(chunk_plan(sum(engine.windows_per_image(images[i].shape[1], rects[i])[1]
                            for i in idxs), engine.batch_windows)) for idxs in sets)
     want = {"B1": 26 * replays, "B2": 18 * replays, "B3": 0, "B4": 0, "B5": 0, "B6": 0,
-            "AdamW": 0, "B3h80": 0, "B4h80": 0}
+            "AdamW": 0, "B3h80": 0, "B4h80": 0, "B1bwd": 0}
     if any(eager.values()) or graphed != want or replays != expect_replays or replays == 0:
         raise AssertionError(f"count_batch: eager launches {eager}, graph launches {graphed} "
                              f"over {replays} replays (expected {expect_replays})")
@@ -1252,7 +1322,7 @@ def per_replay(runner, what: str):
     per = {k: v / max(runner.replays, 1) for k, v in runner.launched.items()}
     if any(eager.values()) or runner.replays == 0 or per != {
             "B1": 26, "B2": 18, "B3": 0, "B4": 0, "B5": 0, "B6": 0, "AdamW": 0,
-            "B3h80": 0, "B4h80": 0}:
+            "B3h80": 0, "B4h80": 0, "B1bwd": 0}:
         raise AssertionError(f"{what}: eager launches {eager}, {runner.replays} replays, "
                              f"launches per replay {per}")
     return dict(runner.launched), eager, runner.replays
@@ -1840,7 +1910,8 @@ def train_phase(torch, dev):
     eval_before = eval_check("before training")
     eval_launches = graph_launches(eval_g.runner, {"B1": 44, "B2": 0, "B3": 18, "B4": 0,
                                                    "B5": 0, "B6": 0, "AdamW": 0,
-                                                   "B3h80": 0, "B4h80": 0}, 1, "eval")
+                                                   "B3h80": 0, "B4h80": 0, "B1bwd": 0}, 1,
+                                   "eval")
 
     # The path itself: 8 steps on the repeated batch and loss mask, shots
     # 3, 2, 1, 0 twice; the graphs of the four shots captured first.
@@ -1854,7 +1925,7 @@ def train_phase(torch, dev):
     step.runner.zero_counts()
     graphed = run_steps(torch, step, [(batch, s) for s in shots], lambda: gen.manual_seed(2))
     per_step = {"B1": 44, "B2": 0, "B3": 18, "B4": 6, "B5": 0, "B6": 0, "AdamW": 1,
-                "B3h80": 0, "B4h80": 0}
+                "B3h80": 0, "B4h80": 0, "B1bwd": 19}
     per_replay = graph_launches(step.runner, per_step, len(shots), "train")
     if eager_launches != {k: v * len(shots) for k, v in per_step.items()}:
         raise AssertionError(f"train (eager): launches {eager_launches} over {len(shots)} "
@@ -1892,7 +1963,8 @@ def train_phase(torch, dev):
     step.runner.zero_counts()
     loss, ms = step_events(torch, step, (batch, 3))
     unfrozen = graph_launches(step.runner, {"B1": 44, "B2": 0, "B3": 18, "B4": 18, "B5": 0,
-                                            "B6": 0, "AdamW": 1, "B3h80": 0, "B4h80": 0},
+                                            "B6": 0, "AdamW": 1, "B3h80": 0, "B4h80": 0,
+                                            "B1bwd": 44},
                               1, "train, encoder unfrozen")
     if not np.isfinite(loss):
         raise AssertionError(f"train, encoder unfrozen: loss {loss}")
@@ -1932,7 +2004,7 @@ def accum_phase(torch, dev):
     # the eager twin's launches are all the wrappers counted: the graphed
     # mini-steps launched nothing outside their graphs
     per_step = {"B1": 44, "B2": 0, "B3": 18, "B4": 6, "B5": 0, "B6": 0, "AdamW": 0,
-                "B3h80": 0, "B4h80": 0}
+                "B3h80": 0, "B4h80": 0, "B1bwd": 19}
     want = {**{k: v * len(shots) for k, v in per_step.items()}, "AdamW": len(shots) // 2,
             "B3h80": 0, "B4h80": 0}
     if launch_counts() != want or step.runner.launched != want \
@@ -2007,9 +2079,9 @@ def checkpoint_phase(torch, dev, ref):
 # recompute) and B4.
 PRETRAIN_LAUNCHES = {
     False: {"B1": 42, "B2": 0, "B3": 20, "B4": 20, "B5": 0, "B6": 0, "AdamW": 1,
-            "B3h80": 0, "B4h80": 0},
+            "B3h80": 0, "B4h80": 0, "B1bwd": 42},
     True: {"B1": 22, "B2": 20, "B3": 20, "B4": 20, "B5": 0, "B6": 0, "AdamW": 1,
-           "B3h80": 0, "B4h80": 0},
+           "B3h80": 0, "B4h80": 0, "B1bwd": 22},
 }
 
 
@@ -2212,10 +2284,12 @@ def adamw_phase(torch, dev):
 
 FT_TRAIN, FT_VAL = 96, 16  # the synthetic tree of the finetune_cli phase
 FT_STEPS = 12  # --limit_steps: the steps of an epoch of the phase
+# B1bwd 19 a train replay: the frozen encoder's 25 LayerNorms run under
+# no_grad, so only the decoder's 19 have a backward
 FT_TRAIN_LAUNCHES = {"B1": 44, "B2": 0, "B3": 18, "B4": 6, "B5": 0, "B6": 0, "AdamW": 1,
-                     "B3h80": 0, "B4h80": 0}
+                     "B3h80": 0, "B4h80": 0, "B1bwd": 19}
 FT_EVAL_LAUNCHES = {"B1": 44, "B2": 0, "B3": 18, "B4": 0, "B5": 0, "B6": 0, "AdamW": 0,
-                    "B3h80": 0, "B4h80": 0}
+                    "B3h80": 0, "B4h80": 0, "B1bwd": 0}
 
 
 def finetune_args(d: str, out: str, *extra):
@@ -2514,7 +2588,7 @@ SURF_LOG_EVERY = 4  # the surfaces phase's --log_every
 SURF_STATS = ("train/loss", "train/MAE", "train/RMSE", "val/MAE", "val/RMSE", "val/NAE", "lr",
               "epoch_time_s")  # an epoch's record (countr_tpu/cli/finetune.py:446-456)
 ENTRY_LAUNCHES = {"B1": 26, "B2": 18, "B3": 0, "B4": 0, "B5": 0, "B6": 0, "AdamW": 0,
-                  "B3h80": 0, "B4h80": 0}
+                  "B3h80": 0, "B4h80": 0, "B1bwd": 0}
 
 
 class RecordingWandb:
@@ -3119,7 +3193,7 @@ def pretrain_cli_phase(torch, d: str):
 
 
 HUGE_LAUNCHES = {"B1": 82, "B2": 0, "B3": 40, "B4": 40, "B5": 0, "B6": 0, "AdamW": 1,
-                 "B3h80": 32, "B4h80": 32}  # 32 x 1280 encoder, 8 x 512 decoder
+                 "B3h80": 32, "B4h80": 32, "B1bwd": 82}  # 32 x 1280 encoder, 8 x 512 decoder
 
 
 def huge_adamw(torch, state) -> dict:
@@ -3542,7 +3616,7 @@ def parallel_counting(torch, model) -> dict:
     per_replica = []
     for i, r in enumerate(runners):
         want = {"B1": 26 * r.replays, "B2": 18 * r.replays, "B3": 0, "B4": 0, "B5": 0, "B6": 0,
-                "AdamW": 0, "B3h80": 0, "B4h80": 0}
+                "AdamW": 0, "B3h80": 0, "B4h80": 0, "B1bwd": 0}
         if any(eager.values()) or r.launched != want or r.replays == 0:
             raise AssertionError(f"parallel count_batch, replica {i}: {r.launched} over "
                                  f"{r.replays} replays, eager {eager}")
@@ -3713,6 +3787,9 @@ def main() -> int:
     huge_b3, huge_b4 = attn_phase(torch, dev, HUGE_ATTN_SHAPES)
     b3_shapes += huge_b3
     b4_shapes += huge_b4
+    # B1bwd here too: run before B6's check, its kernels' lines left that
+    # one-kernel profiler window empty as well
+    ln_bwd_shapes = ln_bwd_phase(torch, dev)
 
     def entry(name, route, source, replaces, path, shapes, **extra):
         main_shape = dict(shapes[0])
@@ -3733,6 +3810,12 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("B1 fused_layer_norm", "triton", "countr_tpu_torch/ops/fused_ln.py",
               "countr_tpu/ops/pallas_ln.py:30", "count_batch", ln_shapes, redesigned_in=1),
+        entry("B1bwd fused_layer_norm backward", "triton", "countr_tpu_torch/ops/fused_ln.py",
+              "none (XLA's LN VJP, countr_tpu/ops/pallas_ln.py:81-86)", "pretrain",
+              ln_bwd_shapes,
+              design="a persistent row pass (x and g read once, the rows' statistics "
+                     "recomputed, dx written, the column sums of g*x^ and g in registers) "
+                     "and a column pass over the programs' partial sums, in a fixed order"),
         entry("B2 fused_attention_block", "cuda", "countr_tpu_torch/csrc/attn_block.cu",
               "countr_tpu/ops/pallas_block.py:41", "count_batch", block_shapes, redesigned_in=4,
               backward=dict(replaces="countr_tpu/ops/pallas_block.py:164", path="pretrain_b2_on",

@@ -1,18 +1,20 @@
 """The kernel wrappers' launch counters, read and set together.
 
 Each wrapper adds one to its counter where it launches its kernel
-(``fused_layer_norm.launches`` for B1, ``fused_attention_block.launches``
-for B2, ``fused_attention.launches`` and ``.bwd_launches`` for B3 and B4
-at every head dim, ``.launches_h80`` and ``.bwd_launches_h80`` for those
-of them at head dim 80 (B3h80, B4h80), ``fused_mlp_block.launches`` for B5, ``fused_cross_attention_block
-.launches`` for B6, ``fused_adamw.launches`` for the training state's
-AdamW update, which replaces no TPU kernel). A CUDA graph's replay runs
+(``fused_layer_norm.launches`` for B1's forward and ``.bwd_launches`` for
+its backward, B1bwd, one a backward call whatever its launches;
+``fused_attention_block.launches`` for B2, ``fused_attention.launches``
+and ``.bwd_launches`` for B3 and B4 at every head dim, ``.launches_h80``
+and ``.bwd_launches_h80`` for those of them at head dim 80 (B3h80,
+B4h80), ``fused_mlp_block.launches`` for B5,
+``fused_cross_attention_block.launches`` for B6, ``fused_adamw.launches``
+for the training state's AdamW update, which replaces no TPU kernel). A CUDA graph's replay runs
 no wrapper: the graph runner (engine/graphs.py) keeps its own counts.
 """
 
 from __future__ import annotations
 
-KERNELS = ("B1", "B2", "B3", "B4", "B5", "B6", "AdamW", "B3h80", "B4h80")
+KERNELS = ("B1", "B2", "B3", "B4", "B5", "B6", "AdamW", "B3h80", "B4h80", "B1bwd")
 
 
 def _counters():
@@ -29,7 +31,8 @@ def _counters():
             "B6": (fused_cross_attention_block, "launches"),
             "AdamW": (fused_adamw, "launches"),
             "B3h80": (fused_attention, "launches_h80"),
-            "B4h80": (fused_attention, "bwd_launches_h80")}
+            "B4h80": (fused_attention, "bwd_launches_h80"),
+            "B1bwd": (fused_layer_norm, "bwd_launches")}
 
 
 def launch_counts() -> dict:

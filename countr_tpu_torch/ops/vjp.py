@@ -1,8 +1,9 @@
 """The backward of a kernel whose TPU counterpart differentiates its
 plain formula: the VJP of the kernel's plain version, recomputed from
-the inputs saved by the forward (B1, B5 and B6; the JAX package's
-custom VJPs at pallas_ln.py:81-86, pallas_block.py:310-318 and
-:522-529 run ``jax.vjp`` over the XLA composition the same way)."""
+the inputs saved by the forward (B5 and B6; the JAX package's custom
+VJPs at pallas_block.py:310-318 and :522-529 run ``jax.vjp`` over the
+XLA composition the same way). B1's backward has kernels of its own
+(``ops/fused_ln.py``)."""
 
 from __future__ import annotations
 

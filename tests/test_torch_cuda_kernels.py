@@ -13,9 +13,13 @@ version round at the same points but sum in another order). B3 and B4
 below docs/PARITY.md:229-230's 3.9e-3 (one ulp in [0.5, 1), where the
 outputs at N = 576 lie); kernel and plain version round at the same
 points (P and dS to bf16, outputs to bf16), so an output differs by one
-rounding at most. B1's backward is the plain formula's VJP recomputed
-from the same inputs, so it equals autograd through the plain version
-bit for bit. The shared GEMM (ops/gemm.py) at every product of the
+rounding at most. B1's backward (B1bwd, its own kernels) at the
+training steps' LayerNorm shapes: dx within one bf16 ulp of the largest
+reference value (one rounding each side, after fp32 arithmetic in
+another order), dscale and dbias within 1e-5 of their largest reference
+value (fp32 sums over up to 23,328 rows in another order); the same
+bits on two calls and replayed from a CUDA graph; only the gradients
+asked for. The shared GEMM (ops/gemm.py) at every product of the
 paths and at ragged M, N and K: max|d| <= 2^-5 * max(1, max|ref|), the
 limit of B5, whose products it runs, and of B6 (kernel and plain version
 round at the same points and sum in another order). B6, one kernel a
@@ -47,7 +51,9 @@ from countr_tpu_torch.ops.fused_attn import (
 )
 from countr_tpu_torch.ops.fused_block import attention_block_plain, fused_attention_block
 from countr_tpu_torch.ops.fused_cross import cross_block_plain, fused_cross_attention_block
-from countr_tpu_torch.ops.fused_ln import fused_layer_norm, layer_norm_plain
+from countr_tpu_torch.ops.fused_ln import (
+    fused_layer_norm, fused_layer_norm_bwd, layer_norm_bwd_plain, layer_norm_plain,
+)
 from countr_tpu_torch.ops.fused_mlp import fused_mlp_block, mlp_block_plain
 from countr_tpu_torch.ops.gemm import EPILOGUES, gemm_nt, gemm_nt_plain
 
@@ -229,21 +235,110 @@ def test_fused_attention_autograd_is_b4(cuda_device):
     assert torch.equal(torch.cat([q.grad, k.grad, v.grad], dim=-1), want)
 
 
+def _ln_bwd_args(rng, dev, rows, c):
+    x = _t(rng, (rows, c), dev, dtype=torch.bfloat16)
+    s = _t(rng, (c,), dev, 0.05, 1.0)
+    b = _t(rng, (c,), dev, 0.05)
+    g = _t(rng, (rows, c), dev, dtype=torch.bfloat16)
+    return x, s, b, g
+
+
+def _assert_ln_bwd_close(got, want):
+    """dx within one bf16 ulp of max|ref|; dscale and dbias within 1e-5
+    of max|ref| (sums over up to 23,328 rows in another order)."""
+    dx, ds, db = got
+    assert dx.dtype == torch.bfloat16 and ds.dtype == db.dtype == torch.float32
+    top = float(want[0].float().abs().max())
+    assert max_d(dx, want[0]) <= 2.0 ** (np.floor(np.log2(top)) - 7)
+    for a, w in zip((ds, db), want[1:]):
+        assert max_d(a, w) <= 1e-5 * float(w.abs().max())
+
+
+def max_d(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
 def test_fused_ln_backward_matches_plain_autograd(cuda_device):
-    rng = np.random.default_rng(4)
-    x = _t(rng, (4 * 576, 512), cuda_device, dtype=torch.bfloat16)
-    s = _t(rng, (512,), cuda_device, 0.05, 1.0)
-    b = _t(rng, (512,), cuda_device, 0.05)
-    g = _t(rng, (4 * 576, 512), cuda_device, dtype=torch.bfloat16)
+    """Autograd through B1 (its backward the B1bwd kernels) against
+    autograd through the plain formula, at B1bwd's bounds (the backward
+    was once the plain formula's VJP itself, and equal to the bit)."""
+    x, s, b, g = _ln_bwd_args(np.random.default_rng(4), cuda_device, 4 * 576, 512)
     grads = []
     for fn in (fused_layer_norm, layer_norm_plain):
         xs = [t.detach().clone().requires_grad_(True) for t in (x, s, b)]
+        n0 = fused_layer_norm.bwd_launches
         fn(*xs, 1e-6).backward(g)
         grads.append([t.grad for t in xs])
-    (gx, gs, gb), (wx, ws, wb) = grads
-    assert gx.dtype == torch.bfloat16 and gs.dtype == torch.float32
-    for got, want in zip((gx, gs, gb), (wx, ws, wb)):
-        assert torch.equal(got, want)
+    assert fused_layer_norm.bwd_launches == n0  # the plain formula's backward: no kernel
+    _assert_ln_bwd_close(*grads)
+
+
+# The training steps' LayerNorm shapes: ViT-H/14's encoder and decoder,
+# mae_base's encoder and decoder; and ragged small ones (C 80 and 96: two
+# register tiles, rows not a multiple of a tile).
+LN_BWD_SHAPES = [(11648, 1280), (23328, 512), (4608, 768), (9216, 512), (37, 96), (5, 80)]
+
+
+@pytest.mark.parametrize("rows,c", LN_BWD_SHAPES)
+def test_fused_ln_backward_kernel_matches_plain(cuda_device, rows, c):
+    """B1bwd against ``layer_norm_bwd_plain``; two calls give the same
+    bits; one B1bwd a backward call, and no forward launch."""
+    x, s, b, g = _ln_bwd_args(np.random.default_rng(rows + c), cuda_device, rows, c)
+    n0, f0 = fused_layer_norm.bwd_launches, fused_layer_norm.launches
+    first = fused_layer_norm_bwd(x, s, b, g, 1e-6)
+    second = fused_layer_norm_bwd(x, s, b, g, 1e-6)
+    torch.cuda.synchronize()
+    assert fused_layer_norm.bwd_launches == n0 + 2 and fused_layer_norm.launches == f0
+    _assert_ln_bwd_close(first, layer_norm_bwd_plain(x, s, b, g, 1e-6))
+    for a, w in zip(first, second):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("needs", [(True, False, False), (False, True, True),
+                                   (False, True, False), (True, False, True)])
+def test_fused_ln_backward_computes_what_is_asked_on_card(cuda_device, needs):
+    """Through autograd: the inputs that require grad get their gradients
+    (within B1bwd's bounds of the plain version's; each subset compiles
+    a kernel of its own, which may round dx apart from the full call's),
+    the others none."""
+    x, s, b, g = _ln_bwd_args(np.random.default_rng(5), cuda_device, 4 * 576, 768)
+    want = layer_norm_bwd_plain(x, s, b, g, 1e-6)
+    ts = [t.detach().clone().requires_grad_(need) for t, need in zip((x, s, b), needs)]
+    n0 = fused_layer_norm.bwd_launches
+    fused_layer_norm(*ts, 1e-6).backward(g)
+    assert fused_layer_norm.bwd_launches == n0 + 1
+    top = float(want[0].float().abs().max())
+    lims = [2.0 ** (np.floor(np.log2(top)) - 7)] + [1e-5 * float(w.abs().max()) for w in want[1:]]
+    for t, need, w, lim in zip(ts, needs, want, lims):
+        assert (t.grad is None) if not need else max_d(t.grad, w) <= lim
+
+
+def test_fused_ln_backward_graphed_equals_eager(cuda_device):
+    """A backward captured in a CUDA graph and replayed gives the eager
+    call's bits, on the captured inputs and on new values copied in."""
+    rng = np.random.default_rng(6)
+    x, s, b, g = _ln_bwd_args(rng, cuda_device, 11648, 1280)
+    eager = fused_layer_norm_bwd(x, s, b, g, 1e-6)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        fused_layer_norm_bwd(x, s, b, g, 1e-6)
+        n0 = fused_layer_norm.bwd_launches
+        with torch.cuda.graph(graph, stream=side):
+            out = fused_layer_norm_bwd(x, s, b, g, 1e-6)
+    torch.cuda.current_stream().wait_stream(side)
+    assert fused_layer_norm.bwd_launches == n0 + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, w in zip(out, eager):
+        assert torch.equal(a, w)
+    x.copy_(_t(rng, tuple(x.shape), cuda_device, dtype=torch.bfloat16))
+    g.copy_(_t(rng, tuple(g.shape), cuda_device, dtype=torch.bfloat16))
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, w in zip(out, fused_layer_norm_bwd(x, s, b, g, 1e-6)):
+        assert torch.equal(a, w)
 
 
 def _cosine(a, b) -> float:
