@@ -75,9 +75,6 @@ Phases, one line each on stdout:
      n_windows, counts within COUNT_BATCH_REL_TOL); a torch.profiler pass
      of count_batch and one of count over the same images (device busy
      and idle share);
-  8. bench: the JSON line of countr_tpu_torch.bench (few-shot) on the
-     same engine: images/s of count_batch (min / median / max of 8
-     passes), graphed, eager and pipeline windows/s;
   8b. parallel: data parallelism on the one card. torchrun's environment
      set here for a world of 1, parallel.dist.init_distributed on NCCL;
      the finetune step (batch 8) and the pretrain step (batch 16) with the
@@ -264,13 +261,17 @@ import contextlib
 import itertools
 import json
 import os
+import subprocess
 import sys
 import time
 
 import numpy as np
 
-H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM
-H100_BYTES_PER_S = 3.35e12  # HBM3 bandwidth, H100 SXM
+# The peaks and the kernels' operation and byte counts are the
+# benchmark's, so the smoke's bounds and the ledger's rooflines agree.
+from benchmark.lib.peaks import BF16_FLOPS, HBM_BYTES_PER_S
+from benchmark.work.kernels import b1, b1bwd, b2, b3, b3h80, b4, b4h80
+
 LN_TOL = 2.0 ** -6  # docs/PARITY.md:228 (1.56e-2)
 BLOCK_TOL = 2.0 ** -5  # docs/PARITY.md:231 (3.1e-2)
 # docs/PARITY.md:229-230 (3.9e-3, the JAX kernel's own bf16 bound, fwd and
@@ -369,10 +370,37 @@ def graph_ms(torch, fn, arg_sets, iters: int = 16, replays: int = 3) -> float:
     return ms
 
 
+def events_ms(fn, iters: int) -> float:
+    """Least mean ms per call of ``fn()`` over 3 runs of ``iters`` calls,
+    each run between two CUDA events (after one warm-up call)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    return best
+
+
+def smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
 def bound(flops: float, moved: float):
     """The least time the card could take for ``flops`` bf16 tensor-core
     operations moving ``moved`` bytes: (ms, "operations" or "bytes")."""
-    tf, tb = flops / H100_BF16_FLOPS, moved / H100_BYTES_PER_S
+    tf, tb = flops / BF16_FLOPS, moved / HBM_BYTES_PER_S
     return max(tf, tb) * 1e3, "operations" if tf > tb else "bytes"
 
 
@@ -435,15 +463,14 @@ def ln_phase(torch, dev, sizes=((WINDOWS * 576, 768), (WINDOWS * 576, 512))):
             raise AssertionError(f"B1 [{rows},{c}] max|d| {err} > {LN_TOL}")
         sb, bb = s.to(torch.bfloat16), b.to(torch.bfloat16)
         args = [(x,) for x in xs]
-        moved = 2 * rows * c * 2 + 2 * c * 4
+        bound_ms, bound_by = bound(b1.flops(rows, c), b1.nbytes(rows, c))
         kernel = lambda x: fused_layer_norm(x, s, b, 1e-6)  # noqa: E731
         shapes.append(dict(
             shape=[rows, c], max_abs_err=err, first_call_s=first_s,
             ms=graph_ms(torch, kernel, args),
             plain_ms=graph_ms(torch, lambda x: layer_norm_plain(x, s, b, 1e-6), args),
             library_ms=graph_ms(torch, lambda x: F.layer_norm(x, (c,), sb, bb, 1e-6), args),
-            bound_ms=moved / H100_BYTES_PER_S * 1e3, bound_by="bytes",
-            eager_ms=time_ms(torch, kernel, args),
+            bound_ms=bound_ms, bound_by=bound_by, eager_ms=time_ms(torch, kernel, args),
         ))
         say("kernel", name="B1 fused_layer_norm", **shapes[-1])
     return shapes
@@ -494,6 +521,7 @@ def ln_bwd_phase(torch, dev, sizes=LN_BWD_SHAPES):
         sb, bb = s.to(torch.bfloat16), b.to(torch.bfloat16)
         lib = [(gg, xx, *torch.ops.aten.native_layer_norm(xx, (c,), sb, bb, 1e-6)[1:])
                for xx, gg in sets]
+        bound_ms, bound_by = bound(b1bwd.flops(rows, c), b1bwd.nbytes(rows, c))
         shapes.append(dict(
             shape=[rows, c], max_abs_err=errs[0], weight_grad_errs=errs[1:], limits=lims,
             first_call_s=first_s,
@@ -502,7 +530,7 @@ def ln_bwd_phase(torch, dev, sizes=LN_BWD_SHAPES):
             library_ms=graph_ms(torch, lambda g, x, mean, rstd: torch.ops.aten.
                                 native_layer_norm_backward(g, x, (c,), mean, rstd, sb, bb,
                                                            [True, True, True]), lib),
-            bound_ms=(6 * rows * c + 8 * c) / H100_BYTES_PER_S * 1e3, bound_by="bytes",
+            bound_ms=bound_ms, bound_by=bound_by,
         ))
         say("kernel", name="B1bwd fused_layer_norm backward", **shapes[-1])
     return shapes
@@ -585,11 +613,10 @@ def block_phase(torch, dev):
             att = F.scaled_dot_product_attention(q, k, v)
             return x + F.linear(att.transpose(1, 2).reshape(b, n, c), w[2], w[3])
 
-        flops = 2 * b * n * c * 3 * c + 2 * 2 * b * n * n * c + 2 * b * n * c * c
-        moved = 2 * (b * n * c * 2) + (4 * c * c + 4 * c) * 2 + 2 * c * 4
+        flops = b2.flops(b, n, c)
         args = [(x,) for x in xs]
         kernel = lambda x: fused_attention_block(x, lns, lnb, *w, h, 1e-6)  # noqa: E731
-        bm, bb = bound(flops, moved)
+        bm, bb = bound(flops, b2.nbytes(b, n, c))
         shapes.append(dict(
             shape=[b, n, c, h], max_abs_err=err,
             ms=graph_ms(torch, kernel, args),
@@ -624,6 +651,7 @@ def attn_phase(torch, dev, shapes=((TRAIN_BATCH, 576, 512, 16), (TRAIN_BATCH, 57
     fwd, bwd = [], []
     for b, n, c, h in shapes:
         hd = c // h
+        k3, k4 = (b3h80, b4h80) if hd == 80 else (b3, b4)
         with_b4 = (b, n, c, h) != (WINDOWS, 576, 768, 12)
         say("core", shape=[b, n, c, h], **core_plan(b, n, c, h))
 
@@ -653,10 +681,10 @@ def attn_phase(torch, dev, shapes=((TRAIN_BATCH, 576, 512, 16), (TRAIN_BATCH, 57
             b3_plain = graph_ms(torch, lambda x: attention_exp2(*x.chunk(3, dim=-1), h), args,
                                 iters=4)
             b3_lib = graph_ms(torch, sdpa, args)
-        bm, bb = bound(4 * b * n * n * c, 4 * b * n * c * 2)
+        bm, bb = bound(k3.flops(b, n, c), k3.nbytes(b, n, c))
         fwd.append(dict(shape=[b, n, c, h], max_abs_err=err, limit=lim, ms=b3_ms, plain_ms=b3_plain,
                         library_ms=b3_lib, library="scaled_dot_product_attention",
-                        bound_ms=bm, bound_by=bb, gflop=4 * b * n * n * c / 1e9))
+                        bound_ms=bm, bound_by=bb, gflop=k3.flops(b, n, c) / 1e9))
         say("kernel", name="B3 fused_attention", **fwd[-1])
         if not with_b4:
             continue
@@ -694,7 +722,7 @@ def attn_phase(torch, dev, shapes=((TRAIN_BATCH, 576, 512, 16), (TRAIN_BATCH, 57
         def sdpa_bwd(i):
             return torch.autograd.grad(outs[i], leaves[i], ghs[i], retain_graph=True)
 
-        f10 = 10 * b * n * n * c
+        f10 = k4.flops(b, n, c)
         with torch.no_grad():
             bargs = list(zip(qkvs, gs))
             b4_ms = graph_ms(torch, lambda x, gg: fused_attention_bwd(x, gg, h), bargs)
@@ -705,7 +733,7 @@ def attn_phase(torch, dev, shapes=((TRAIN_BATCH, 576, 512, 16), (TRAIN_BATCH, 57
             cycle = itertools.cycle(bargs)
             passes = profile_run(torch, lambda: fused_attention_bwd(*next(cycle), h),
                                  12)["port_kernels"]
-        bm, bb = bound(f10, 7 * b * n * c * 2)
+        bm, bb = bound(f10, k4.nbytes(b, n, c))
         bwd.append(dict(shape=[b, n, c, h], max_abs_err=derr, limit=dlim, ms=b4_ms,
                         plain_ms=b4_plain, library_ms=b4_lib,
                         library="SDPA forward + backward (torch.autograd.grad) less SDPA "
@@ -1157,8 +1185,6 @@ def graph_phase(torch, engine):
     windows/s (CUDA events, inputs copied into the graph's buffers as
     count_batch does); then a weight change (load_state_dict), after
     which the replay must give the new eager output's bits."""
-    from countr_tpu_torch.bench import events_ms
-
     model, graphed = engine.model, engine._pipeline.forward
     rng = np.random.default_rng(13)
 
@@ -1284,15 +1310,6 @@ def count_batch_phase(torch, engine):
     return graphed
 
 
-def bench_phase(engine):
-    """countr_tpu_torch.bench's measurement on this engine: its JSON line."""
-    from countr_tpu_torch import bench
-
-    line = bench.run("few_shot", engine=engine)
-    print(json.dumps({"phase": "bench", **line}), flush=True)
-    return line
-
-
 # count_image and count on the same image against count_batch (the CLIs'
 # path) is COUNT_BATCH_REL_TOL (above); the mixed modes' fp32 head against
 # the same head in float64 on the same token grid: max|d| over max|ref| at
@@ -1388,7 +1405,6 @@ def cli_test_phase(torch):
     import os
     import subprocess
 
-    from countr_tpu_torch.bench import events_ms
     from countr_tpu_torch.cli import common
     from countr_tpu_torch.cli import test as cli
 
@@ -1843,7 +1859,6 @@ def train_phase(torch, dev):
     main path) against 8 eager steps from the same start; the eval step,
     graphed against eager before and after them; one unfrozen step.
     Returns (launches, the graphed run's losses and final weights)."""
-    from countr_tpu_torch.bench import events_ms
     from countr_tpu_torch.engine import train as engine
 
     state, step, gen, cfg = finetune_setup(torch, dev)
@@ -2197,7 +2212,7 @@ def adamw_update(state, fn) -> None:
     ``adamw_plain``) from its flat gradient, at the group's settings."""
     group = state.optimizer.param_groups[0]
     beta1, beta2 = group["betas"]
-    fn(state.segments, state.flat[0], state.exp_avg, state.exp_avg_sq, state.adam_step,
+    fn(state.segments, state.flat, state.exp_avg, state.exp_avg_sq, state.adam_step,
        group["lr"], beta1=beta1, beta2=beta2, eps=group["eps"],
        weight_decay=group["weight_decay"])
 
@@ -2273,7 +2288,7 @@ def adamw_phase(torch, dev):
                ms=graph_ms(torch, lambda: adamw_update(kernel, fused_adamw), [()]),
                plain_ms=graph_ms(torch, lambda: adamw_update(plain, adamw_plain), [()]),
                library_ms=library["fused"], foreach_capturable_ms=library["foreach"],
-               bound_ms=28 * n / H100_BYTES_PER_S * 1e3, bound_by="bytes",
+               bound_ms=28 * n / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
                eager_launches=eager)
     # the state's whole update (the step count, then the kernel): its kernels
     row["update_kernels"] = profile_run(torch, lambda: kernel.apply_gradients(True), 2)["top"]
@@ -2379,7 +2394,6 @@ def finetune_inprocess(torch, d: str, device_aug: bool):
     of the run, the graphs' launches, the line)."""
     import random
 
-    from countr_tpu_torch.bench import events_ms
     from countr_tpu_torch.cli import finetune as cli
     from countr_tpu_torch.data.loader import device_prefetch
 
@@ -2437,7 +2451,6 @@ def augment_costs(torch, ft, batch) -> dict:
     """The device augmentation's ms on a loader batch (batch 8), and the
     branchless jitter's against one sequential pass of its four ops on the
     same images and factors: the price of the one-hot selection."""
-    from countr_tpu_torch.bench import events_ms
     from countr_tpu_torch.ops import augment as aug
 
     gen = torch.Generator(device=ft.device).manual_seed(5)
@@ -2643,7 +2656,6 @@ def surfaces_logging(torch, d: str):
     the panels of one epoch alone. Returns the run's graph launches."""
     import os
 
-    from countr_tpu_torch.bench import events_ms
     from countr_tpu_torch.cli import common
     from countr_tpu_torch.cli import finetune as cli
     from countr_tpu_torch.data.loader import device_prefetch
@@ -2812,7 +2824,6 @@ def surfaces_entry(torch):
     """countr_tpu_torch.entry.entry() on the card: its forward (eager)
     against the model's own eager forward, to the bit, with its launches
     and ms. Returns the launches of one forward."""
-    from countr_tpu_torch.bench import events_ms
     from countr_tpu_torch.entry import ENTRY_SHOT, entry
 
     fn, args = entry()
@@ -2884,7 +2895,6 @@ def resident_inprocess(torch, d: str, pipelined: bool):
     line)."""
     import random
 
-    from countr_tpu_torch.bench import events_ms
     from countr_tpu_torch.cli import finetune as cli
     from countr_tpu_torch.data.loader import device_prefetch
     from countr_tpu_torch.engine import train as engine
@@ -3043,7 +3053,6 @@ def materialize_checks(torch, pt, batch) -> dict:
     from a CUDA graph and eager with the process's TF32 flags on, and eager
     with them off, the same bits (its band products run in fp32 whatever
     the flags); graphed and eager ms; the store's bytes."""
-    from countr_tpu_torch.bench import events_ms
     from countr_tpu_torch.engine.graphs import GraphRunner
     from countr_tpu_torch.engine.train_store import PRETRAIN_KEYS, materialize_pretrain_batch
 
@@ -3107,7 +3116,6 @@ def pretrain_inprocess(torch, d: str, resident: bool):
     and resize, or on the resident path ``_store_item``); on the resident
     path the materialisation's checks. Returns (stats, weights,
     losses, launches, line)."""
-    from countr_tpu_torch.bench import events_ms
     from countr_tpu_torch.cli import pretrain as cli
     from countr_tpu_torch.data.loader import device_prefetch
 
@@ -3215,7 +3223,7 @@ def huge_adamw(torch, state) -> dict:
         seg = copy.copy(state.segments)  # adamw_plain reads params, offsets, decay_end
         seg.params = [p.detach().clone() for p in state.params]
         plain = types.SimpleNamespace(
-            segments=seg, flat=[state.flat[0].clone()], exp_avg=state.exp_avg.clone(),
+            segments=seg, flat=state.flat.clone(), exp_avg=state.exp_avg.clone(),
             exp_avg_sq=state.exp_avg_sq.clone(), adam_step=state.adam_step.clone(),
             optimizer=state.optimizer)
     # the cell's peak lr: the phase's one epoch ends inside the warm-up,
@@ -3238,7 +3246,7 @@ def huge_adamw(torch, state) -> dict:
                adamw_limit=ADAMW_TOL, adamw_chunks=int(state.segments.table.shape[0]),
                adamw_ms=graph_ms(torch, lambda: adamw_update(state, fused_adamw), [()]),
                adamw_plain_ms=graph_ms(torch, lambda: adamw_update(plain, adamw_plain), [()]),
-               adamw_bound_ms=28 * n / H100_BYTES_PER_S * 1e3)
+               adamw_bound_ms=28 * n / HBM_BYTES_PER_S * 1e3)
     del plain, seg
     torch.cuda.empty_cache()
     return out
@@ -3256,7 +3264,6 @@ def pretrain_huge_phase(torch, d: str) -> dict:
     parameters against its plain version, and the device ms of each
     beside the 28-byte-a-parameter bound (``huge_adamw``).
     Returns each path's graph launches."""
-    from countr_tpu_torch.bench import events_ms
     from countr_tpu_torch.cli import pretrain as cli
     from countr_tpu_torch.data.loader import device_prefetch
     from countr_tpu_torch.engine.train_store import materialize_pretrain_batch
@@ -3368,7 +3375,7 @@ def store_pool_phase(torch, dev):
                 eager_ms=time_ms(torch, fn, arg_sets, iters=16),
                 graphed_ms=graph_ms(torch, fn, arg_sets),
                 affine_only_graphed_ms=graph_ms(torch, affine, arg_sets),
-                bound_ms=moved / H100_BYTES_PER_S * 1e3, bound_by="bytes", bytes_moved=moved)
+                bound_ms=moved / HBM_BYTES_PER_S * 1e3, bound_by="bytes", bytes_moved=moved)
     say("store_pool", **line)
     pretrain_pool(torch, dev, {k: arrays[k] for k in ("pixels", "base")})
     del arrays, batches, arg_sets
@@ -3412,7 +3419,7 @@ def pretrain_pool(torch, dev, arrays) -> None:
     fn = lambda x: materialize_pretrain_batch(arrays, x, max_w)  # noqa: E731
     flops = 2 * 384 * 384 * 3 * (max_w + 384) * b
     moved = source_px / len(batches) * 3 + b * 384 * 384 * 3 * 4
-    tf, tb = flops / H100_FP32_FLOPS * 1e3, moved / H100_BYTES_PER_S * 1e3
+    tf, tb = flops / H100_FP32_FLOPS * 1e3, moved / HBM_BYTES_PER_S * 1e3
     say("pretrain_pool", pool_images=POOL_IMAGES, pool_bytes=int(arrays["pixels"].numel()),
         max_w=max_w, batch=b, eager_ms=time_ms(torch, fn, arg_sets, iters=16),
         graphed_ms=graph_ms(torch, fn, arg_sets), flops=flops, flop_bound_ms=tf,
@@ -3436,7 +3443,6 @@ def carpk_cli_phase(torch):
     launches together."""
     import os
 
-    from countr_tpu_torch.bench import events_ms
     from countr_tpu_torch.cli import finetune_carpk as cli
     from countr_tpu_torch.data.loader import device_prefetch
 
@@ -3546,8 +3552,6 @@ def parallel_step(torch, what: str, setup, args, per_step: dict, seed: int) -> d
     no eager launch; no capture after the first step; step ms of both
     (CUDA events) and the all-reduce's device ms inside the replay
     (profiler)."""
-    from countr_tpu_torch.bench import events_ms
-
     (state_d, step_d, gen_d), (state_p, step_p, gen_p) = setup(True), setup(False)
     with counted_all_reduces(torch) as in_captures:
         for a in args:
@@ -3572,12 +3576,11 @@ def parallel_step(torch, what: str, setup, args, per_step: dict, seed: int) -> d
     ms_d = events_ms(lambda: step_d(*args[0]), iters=10)
     ms_p = events_ms(lambda: step_p(*args[0]), iters=10)
     prof = profile_run(torch, lambda: step_d(*args[0]), 3)
-    flat_bytes = sum(f.numel() * f.element_size() for f in state_d.flat)
     out = dict(steps=len(args), losses=run_d["losses"], launches_per_replay=per_replay,
                graphs=graphs, captured_after_first_step=0, bitwise_equal_to_no_group=same,
                all_reduces_in_captures=in_captures, all_reduces_in_replays=in_replays,
                ms_per_step=ms_d, no_group_ms_per_step=ms_p,
-               allreduce_bytes_per_step=flat_bytes, flat_buffers=len(state_d.flat),
+               allreduce_bytes_per_step=state_d.flat.numel() * state_d.flat.element_size(),
                allreduce_device_ms_per_step=sum(r["ms"] for r in prof["collectives"]),
                collectives=prof["collectives"], idle_share=prof["idle_share"],
                device_busy_ms=prof["device_busy_ms"])
@@ -3716,7 +3719,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    from countr_tpu_torch.bench import smi_line
     from countr_tpu_torch.config import fast_mode_overrides
     from countr_tpu_torch.engine.inference import CountingEngine
     from countr_tpu_torch.models import build_countr
@@ -3753,7 +3755,6 @@ def main() -> int:
     engine = CountingEngine(model, batch_windows=WINDOWS)
     graph_phase(torch, engine)
     by_path["count_batch"] = count_batch_phase(torch, engine)
-    bench_phase(engine)
     by_path.update(parallel_phase(torch, dev, model))
     # the mixed modes turn TF32 off for the process (an fp32 head); the
     # later phases keep the flags they had

@@ -27,7 +27,7 @@ import contextlib
 import numpy as np
 import torch
 
-from countr_tpu_torch.config import DENSITY_SCALE, TTN_THRESHOLD, WINDOW
+from countr_tpu_torch.config import DENSITY_SCALE, WINDOW
 from countr_tpu_torch.utils.profiling import span
 
 WIDTH_BUCKETS = (384, 448, 512, 576, 640, 768, 1024, 1536, 2304, 4608)
@@ -201,59 +201,6 @@ def stitch_set(forward, images, y_all, plan: dict, dev: dict, n_den_rows: int,
             accumulate(density, dens, plan["den_owner"][i:j], plan["den_start"][i:j],
                        dev["wcol"][i:j])
     return density
-
-
-def fused_set_program(engine, sp: dict, shot_num: int = 3):
-    """One set's whole pipeline from device-resident inputs: the exemplar
-    CNN, window extraction (plain and resampled), the batched forwards
-    (the engine pipeline's: replayed from CUDA graphs on the card, eager
-    on the CPU), stitching, finalize and TTN, from a production plan
-    (``CountingEngine._plan_set``) — op for op what ``count_batch`` runs
-    for the set, with every input already on the device.
-
-    Returns ``(args, preds_fn)``: ``preds_fn(*args)`` -> [n_img]
-    predicted counts, a device tensor. The JAX package also returns a
-    ``make_loop`` that chains evaluations in one ``lax.scan`` so that
-    XLA hoists nothing and the TPU link's round trip stays out of the
-    timing; here calls are timed between CUDA events, so there is no
-    such loop."""
-    model, forward, dev = engine.model, engine._pipeline.forward, engine.device
-    plan = sp["plan"]
-    idx_imgs = list(sp["img_rows"].keys())
-    n_img = len(sp["grid_flags"])
-
-    # density row -> its image's position in the set (padded rows -> the
-    # dummy segment n_img); each image's LAST row feeds TTN (reference:
-    # FSC_test_cross(few-shot).py:353-359)
-    pos_of = {im: p for p, im in enumerate(idx_imgs)}
-    row_owner = np.full(sp["r_bucket"], n_img, np.int64)
-    for ridx, im in enumerate(sp["den_owner_img"]):
-        row_owner[ridx] = pos_of[im]
-    last_row = np.zeros(max(n_img, 1), np.int64)
-    for im, rws in sp["img_rows"].items():
-        last_row[pos_of[im]] = rws[-1][0]
-
-    def preds_fn(images, bstack, plan_dev, rects, rvalid, row_owner, last_row):
-        y_all = model.encode_exemplars(bstack, shot_num)
-        density = stitch_set(forward, images, y_all, plan, plan_dev, sp["r_bucket"],
-                             sp["den_width"], engine.batch_windows,
-                             len(engine._pipeline.devices))
-        counts, esum = finalize(density, rects, rvalid)
-        # per-image sums as a masked reduce in a fixed order (no atomics)
-        onehot = row_owner[None, :] == torch.arange(n_img, device=counts.device)[:, None]
-        raw = (onehot.to(counts.dtype) * counts[None, :]).sum(-1)
-        e = esum[last_row] / 3.0
-        return torch.where(e > TTN_THRESHOLD, raw / torch.clamp(e, min=1e-9), raw)
-
-    def put(a):
-        return torch.as_tensor(a).to(dev)
-
-    args = (
-        put(sp["stackr"]), sp["bstack"].to(dev),
-        {k: put(v) for k, v in plan.items() if k != "n_plain"},
-        put(sp["rects_arr"]), put(sp["rects_valid"]), put(row_owner), put(last_row),
-    )
-    return args, preds_fn
 
 
 class DevicePipeline:

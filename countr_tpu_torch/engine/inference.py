@@ -386,8 +386,7 @@ class CountingEngine:
     def _plan_set(self, idxs, images, boxes_list, rects_list, shot_num) -> dict:
         """Host-side set assembly (no device work): the flat pixel pool,
         the exemplar crop stack, the window plan, the rect arrays and the
-        row bookkeeping. Shared by the dispatch path and the bench's
-        pipeline timer (``fused_set_program``)."""
+        row bookkeeping."""
         n_img = len(idxs)
         grid_flags = {i: small_exemplar_count(rects_list[i]) >= self.max_s_cnt for i in idxs}
         u_bucket = self._row_bucket(n_img)

@@ -143,8 +143,9 @@ class TrainState:
 
     The gradients and Adam's two moments are views of flat float32
     buffers laid out alike, in the groups' order (``segments``,
-    ``ops.fused_adamw.AdamWSegments``): ``flat`` (a list of the one
-    gradient buffer), ``exp_avg`` and ``exp_avg_sq``. The optimizer's
+    ``ops.fused_adamw.AdamWSegments``): ``flat`` (the gradients),
+    ``exp_avg`` and ``exp_avg_sq``, and under ``accum_iter`` > 1
+    ``flat_acc`` (the accumulator, ``acc``). The optimizer's
     state holds those views under ``exp_avg`` and ``exp_avg_sq`` and one
     shared 0-d step count (``adam_step``) under every ``step``, so that
     its ``state_dict`` keeps torch's layout. An update is one
@@ -192,12 +193,13 @@ class TrainState:
         self.segments = AdamWSegments(self.params, len(groups[0]["params"]))
         n = self.segments.length
         with torch.no_grad():
-            self.flat = [torch.zeros(n, device=self.device)]
-            self.grads = self.segments.views(self.flat[0])
+            self.flat = torch.zeros(n, device=self.device)
+            self.grads = self.segments.views(self.flat)
             self.exp_avg, self.exp_avg_sq = (torch.zeros(n, device=self.device),
                                              torch.zeros(n, device=self.device))
             self.adam_step = torch.zeros((), device=self.device)
-            self.acc = [torch.zeros_like(p) for p in self.params] if accum_iter > 1 else []
+            self.flat_acc = torch.zeros(n, device=self.device) if accum_iter > 1 else None
+            self.acc = self.segments.views(self.flat_acc) if accum_iter > 1 else []
             self.divisor = torch.ones((), device=self.device)  # n + 1 of MultiSteps
         for p, g, m, v in zip(self.params, self.grads, self.segments.views(self.exp_avg),
                               self.segments.views(self.exp_avg_sq)):
@@ -212,9 +214,9 @@ class TrainState:
     def mutable(self) -> list:
         """Every tensor a step writes: the trainable parameters, the flat
         buffers of their gradients and of Adam's moments, Adam's step count
-        and the accumulator."""
-        return (list(self.params) + self.flat + [self.exp_avg, self.exp_avg_sq, self.adam_step]
-                + self.acc)
+        and the accumulator's flat buffer."""
+        return (list(self.params) + [self.flat, self.exp_avg, self.exp_avg_sq, self.adam_step]
+                + ([self.flat_acc] if self.accum_iter > 1 else []))
 
     def begin_step(self) -> bool:
         """The host's part before a mini-step: put the gradient buffers
@@ -238,33 +240,31 @@ class TrainState:
         return update
 
     def zero_grads(self) -> None:
-        torch._foreach_zero_(self.flat)
+        self.flat.zero_()
 
     def apply_gradients(self, update: bool) -> None:
         """The device's part after the backward: on a data-parallel rank,
-        average the gradients across the ranks (one all-reduce per flat
+        average the gradients across the ranks (one all-reduce of the flat
         buffer: the global batch's gradient, since every rank's loss is a
         mean over the same number of samples); fold them into the
         accumulator (MultiSteps' acc + (g - acc) / (n + 1), in that order
-        of operations) and, on an update, AdamW on the mean (the gradients
-        themselves without accumulation): the step count, then one
-        ``fused_adamw`` pass."""
+        of operations, elementwise on the two flat buffers) and, on an
+        update, AdamW on the mean (the gradients themselves without
+        accumulation): the step count, then one ``fused_adamw`` pass."""
         if self.group is not None:
-            for flat in self.flat:
-                all_reduce_mean(flat, self.group, self.world)
+            all_reduce_mean(self.flat, self.group, self.world)
         if self.accum_iter > 1:
-            torch._foreach_sub_(self.grads, self.acc)
-            torch._foreach_div_(self.grads, self.divisor)
+            self.flat.sub_(self.flat_acc).div_(self.divisor)
             if update:
-                torch._foreach_add_(self.grads, self.acc)
-                torch._foreach_zero_(self.acc)
+                self.flat.add_(self.flat_acc)
+                self.flat_acc.zero_()
             else:
-                torch._foreach_add_(self.acc, self.grads)
+                self.flat_acc.add_(self.flat)
         if update:
             group = self.optimizer.param_groups[0]
             beta1, beta2 = group["betas"]
             self.adam_step.add_(1)
-            fused_adamw(self.segments, self.flat[0], self.exp_avg, self.exp_avg_sq,
+            fused_adamw(self.segments, self.flat, self.exp_avg, self.exp_avg_sq,
                         self.adam_step, group["lr"], beta1=beta1, beta2=beta2, eps=group["eps"],
                         weight_decay=group["weight_decay"])
 

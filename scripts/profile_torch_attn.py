@@ -109,7 +109,6 @@ def main() -> int:
         return 1
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
-    from countr_tpu_torch.bench import smi_line
     from countr_tpu_torch.ops import fused_attn
 
     smoke = load_smoke()
@@ -120,7 +119,7 @@ def main() -> int:
             ("B4", fused_attn.fused_attention_bwd, 10, True, SHAPES)]
     for name, fn, flop_per, backward, shapes in runs:
         for shape in shapes:
-            line = dict(kernel=name, tree=str(tree), card=smi_line(),
+            line = dict(kernel=name, tree=str(tree), card=smoke.smi_line(),
                         **measure(torch, smoke, fn, shape, flop_per, backward))
             if not backward:
                 line["core"] = plan(*shape) if plan else None

@@ -57,7 +57,6 @@ def main() -> int:
         return 1
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
-    from countr_tpu_torch.bench import smi_line
     from countr_tpu_torch.ops import fused_cross
 
     smoke = load_smoke()
@@ -92,7 +91,7 @@ def main() -> int:
             info = (plan(b * n, c, h, name) if name else plan(b * n, c, h)) if plan else None
             line = dict(tree=str(tree), shape=[b, n, c, h], ny=ny, plan_name=name or "auto",
                         max_abs_err=err, ms=smoke.graph_ms(torch, kernel, [(x,) for x in xs]),
-                        plan=info, card=smi_line())
+                        plan=info, card=smoke.smi_line())
             lines.append(line)
             print(json.dumps(line), flush=True)
     out = Path(args.out)

@@ -64,7 +64,6 @@ def main(argv=None) -> int:
     import torch
     import torch.nn.functional as F
 
-    from countr_tpu_torch.bench import smi_line
     from countr_tpu_torch.ops import fused_ln
 
     smoke = load_smoke()
@@ -75,7 +74,7 @@ def main(argv=None) -> int:
         lines.append(kv)
         print(json.dumps(kv), flush=True)
 
-    say(device=torch.cuda.get_device_name(0), smi=smi_line())
+    say(device=torch.cuda.get_device_name(0), smi=smoke.smi_line())
     rng = np.random.default_rng(0)
     for rows, c in SHAPES:
         sets = [tuple(torch.from_numpy(rng.standard_normal((rows, c), np.float32)).to(

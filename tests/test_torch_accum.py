@@ -41,10 +41,12 @@ from countr_tpu.config import TrainConfig as JaxTrainConfig
 from countr_tpu.engine import train as jtrain
 from countr_tpu_torch.config import TrainConfig
 from countr_tpu_torch.engine import train as ttrain
+from countr_tpu_torch.models import build_countr
 from tests.test_torch_train import (
     B, WEAK_GRAD, batch, bridge, jax_mask, jax_params, port_model, to_torch,
     zero_grad_elements,
 )
+from tests.torch_port_helpers import TINY
 
 SHOTS = [3, 0, 2, 3, 2, 0]
 LR = 1e-3
@@ -157,3 +159,34 @@ def test_accumulation_matches_multisteps(k):
             assert d[~weak].max(initial=0.0) <= STATE_REL * top, (i, name)
             assert d[weak].max(initial=0.0) <= 2 * LR * st.updates, (i, name)
     assert st.step == len(SHOTS) and st.updates == len(SHOTS) // k
+
+
+def test_accumulator_is_one_flat_buffer():
+    """At ``accum_iter`` 2 every ``acc[i]`` is a view of one flat fp32
+    buffer laid out as the gradients' (``segments``), which ``mutable``
+    lists once, with no tensor per parameter; the fold on the two flat
+    buffers gives the bits of MultiSteps' per-tensor fold."""
+    model = build_countr(device="cpu", seed=0, training=True, **TINY)
+    st = ttrain.init_train_state(model, TrainConfig(batch_size=B, accum_iter=2), 2, B)
+    storage = {a.untyped_storage().data_ptr() for a in st.acc}
+    assert len(st.acc) == len(st.params) > 1 and len(storage) == 1
+    assert [a.shape for a in st.acc] == [p.shape for p in st.params]
+    assert [a.storage_offset() for a in st.acc] == [g.storage_offset() for g in st.grads]
+    held = [t for t in st.mutable() if t.untyped_storage().data_ptr() in storage]
+    assert len(held) == 1 and held[0].shape == (st.segments.length,)
+    assert not any(t is a for t in st.mutable() for a in st.acc)
+
+    gen = torch.Generator().manual_seed(0)
+    acc = [torch.zeros_like(p) for p in st.params]
+    for update in (False, True):
+        assert st.begin_step() == update
+        want = []
+        for g, a in zip(st.grads, acc):
+            g.normal_(generator=gen)
+            g = (g - a) / st.divisor
+            want.append((g + a, torch.zeros_like(a)) if update else (g, a + g))
+        st.apply_gradients(update)
+        st.end_step(update)
+        for (g, a), got_g, got_a in zip(want, st.grads, st.acc, strict=True):
+            assert torch.equal(got_g, g) and torch.equal(got_a, a)
+        acc = [a for _, a in want]

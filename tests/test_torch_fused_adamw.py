@@ -269,7 +269,7 @@ def test_wrapper_refusals():
     state = ttrain.init_train_state(tiny_model("mae"), CFG, 2, CFG.batch_size)
     seg, n = state.segments, state.segments.length
     kw = dict(beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.05)
-    ok = (state.flat[0], state.exp_avg, state.exp_avg_sq, state.adam_step, 1e-3)
+    ok = (state.flat, state.exp_avg, state.exp_avg_sq, state.adam_step, 1e-3)
     for i, bad in ((0, torch.zeros(n, dtype=torch.float64)), (1, torch.zeros(n + 1)),
                    (2, torch.zeros(2 * n)[::2]), (3, torch.zeros(1))):
         args = list(ok)
@@ -308,7 +308,7 @@ def apply_update(state, fn) -> None:
     state.begin_step()
     group = state.optimizer.param_groups[0]
     state.adam_step.add_(1)
-    fn(state.segments, state.flat[0], state.exp_avg, state.exp_avg_sq, state.adam_step,
+    fn(state.segments, state.flat, state.exp_avg, state.exp_avg_sq, state.adam_step,
        group["lr"], beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=group["weight_decay"])
 
 

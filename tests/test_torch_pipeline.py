@@ -8,8 +8,7 @@ so exactly equal; extract_windows is a gather and one division, so
 bitwise; extract_windows_resampled and accumulate are a few fp32
 products and sums that XLA may contract into FMAs where torch rounds
 each, so atol 1e-6 on values in [0, 1] and N(0, 1); finalize sums
-~150k fp32 values in another order, so rtol 1e-5. fused_set_program's
-counts against count_batch's: the same ops on the same plan, rtol 1e-5.
+~150k fp32 values in another order, so rtol 1e-5.
 """
 
 import jax.numpy as jnp
@@ -209,30 +208,3 @@ def test_finalize_matches_jax():
                                                   + density[0].sum()
                                                   + density[0, 300:, 400:].sum()) / 60.0,
                                rtol=1e-5)
-
-
-def test_fused_set_program_matches_count_batch():
-    """fused_set_program (the bench's pipeline timer) on a production set
-    counts as count_batch does: plain, grid and narrow images, uint8."""
-    rng = np.random.default_rng(7)
-    cfg = TorchConfig(**{**TINY, "depth": 1, "decoder_depth": 1})
-    model = TorchCounTR(cfg)
-    with torch.no_grad():
-        for p in model.parameters():
-            p.add_(0.02 * torch.from_numpy(rng.standard_normal(p.shape).astype(np.float32)))
-    engine = TorchEngine(model, batch_windows=8, device="cpu")
-    images = [rng.integers(0, 256, (384, w, 3), dtype=np.uint8) for w in (448, 512, 640, 464, 300)]
-    boxes = [rng.uniform(0, 1, (3, 64, 64, 3)).astype(np.float32) for _ in images]
-    rects = [PLAIN_RECTS, PLAIN_RECTS, PLAIN_RECTS, TINY_RECTS, PLAIN_RECTS]
-    expected = engine.count_batch(images, boxes, rects, 3, return_density=False)
-    assert expected[3].grid_mode and not expected[0].grid_mode
-
-    idxs = engine.plan_batch_sets(images, rects)[0]
-    assert sorted(idxs) == list(range(len(images)))
-    sp = engine._plan_set(idxs, images, boxes, rects, 3)
-    args, preds_fn = tdp.fused_set_program(engine, sp, shot_num=3)
-    with torch.inference_mode():
-        preds = preds_fn(*args).numpy()
-    assert preds.shape == (len(images),)
-    for p, i in enumerate(idxs):
-        np.testing.assert_allclose(preds[p], expected[i].count, rtol=1e-5)
