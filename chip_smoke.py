@@ -43,6 +43,18 @@ Phases, one line each on stdout:
      encoder's 25 LayerNorms run under no_grad), 44 unfrozen, 42 a
      pretrain step (22 with B2 on), 82 a ViT-H/14 one; none on the
      counting and eval paths;
+  3a. hgn: HGN, the density head's bias + GroupNorm + ReLU in two Triton
+     passes (ops/fused_gn.py), at the count build's four head shapes at
+     16 windows ([16, 24, 24, 256], [16, 48, 48, 256], [16, 96, 96, 256]
+     and stage 3's phase tensor [16, 96, 96, 1024] with the pred conv
+     folded in), bf16, against its plain version (within a rounding), the
+     same bits on two calls, one HGN a call; graph-replayed ms of the
+     kernels beside the bytes bound (the input read twice, the output
+     written once), of the plain version, of the ATen chain it replaced
+     and of F.group_norm + ReLU on the channels-last view as the library's
+     yardstick. Every counting forward, eval and panel replay and eager
+     forward below launches HGN 4 times (a density-head stage each)
+     besides the counts it names; no training step launches it;
   3b. adamw: the training state's fused AdamW update (ops/fused_adamw.py)
      at mae_base's 251 trainable tensors (111,654,912 fp32): three
      updates of the kernel against its plain version from the same state,
@@ -1023,20 +1035,25 @@ def block_bwd_phase(torch, dev):
 def plain_kernels():
     """Swap the model's kernel calls for their plain versions (the
     comparison paths of the forward and train phases only)."""
-    from countr_tpu_torch.models import vit
+    from countr_tpu_torch.models import countr, vit
     from countr_tpu_torch.ops.fused_attn import attention_qkv_plain
     from countr_tpu_torch.ops.fused_block import attention_block_plain
+    from countr_tpu_torch.ops.fused_gn import group_norm_phase_plain, group_norm_relu_plain
     from countr_tpu_torch.ops.fused_ln import layer_norm_plain
 
-    names = ("fused_layer_norm", "fused_attention_block", "fused_attention_qkv")
-    saved = [getattr(vit, k) for k in names]
-    for k, fn in zip(names, (layer_norm_plain, attention_block_plain, attention_qkv_plain)):
-        setattr(vit, k, fn)
+    swaps = ((vit, "fused_layer_norm", layer_norm_plain),
+             (vit, "fused_attention_block", attention_block_plain),
+             (vit, "fused_attention_qkv", attention_qkv_plain),
+             (countr, "fused_group_norm", group_norm_relu_plain),
+             (countr, "fused_group_norm_phase", group_norm_phase_plain))
+    saved = [getattr(mod, k) for mod, k, _ in swaps]
+    for mod, k, fn in swaps:
+        setattr(mod, k, fn)
     try:
         yield
     finally:
-        for k, fn in zip(names, saved):
-            setattr(vit, k, fn)
+        for (mod, k, _), fn in zip(swaps, saved):
+            setattr(mod, k, fn)
 
 
 def forward_phase(torch, dev, model):
@@ -1088,7 +1105,7 @@ def profile_run(torch, run, steps: int):
     kernels = [r for r in rows if not r[0].startswith(("aten::", "Optimizer.", "autograd::"))]
     kernels.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in kernels)
-    ours = ("_ln_fwd", "_ln_bwd", "ln_rows_kernel", "gemm_nt_kernel", "cross_block_kernel",
+    ours = ("_ln_fwd", "_ln_bwd", "_hgn_", "ln_rows_kernel", "gemm_nt_kernel", "cross_block_kernel",
             "attn_resident_kernel", "attn_twopass_kernel", "bwd_stats_kernel", "bwd_main_kernel")
     return dict(
         wall_ms=wall_ms, device_busy_ms=busy, idle_share=max(0.0, 1 - busy / wall_ms),
@@ -1154,7 +1171,8 @@ def count_phase(torch, model):
     if results[-1].n_windows != 36:
         raise AssertionError(f"grid image ran {results[-1].n_windows} windows, not 36")
     if launches != {"B1": 26 * batches, "B2": 18 * batches, "B3": 0, "B4": 0, "B5": 0,
-                    "B6": 0, "AdamW": 0, "B3h80": 0, "B4h80": 0, "B1bwd": 0} or batches == 0:
+                    "B6": 0, "AdamW": 0, "B3h80": 0, "B4h80": 0, "B1bwd": 0,
+                    "HGN": 4 * batches} or batches == 0:
         raise AssertionError(f"launches {launches} for {batches} window batches")
     say("count_launches", window_batches=batches, **launches)
     return launches
@@ -1218,7 +1236,7 @@ def graph_phase(torch, engine):
     replays = graphed.runner.replays
     per_replay = {k: v / replays for k, v in graphed.runner.launched.items()}
     if per_replay != {"B1": 26, "B2": 18, "B3": 0, "B4": 0, "B5": 0, "B6": 0, "AdamW": 0,
-                      "B3h80": 0, "B4h80": 0, "B1bwd": 0}:
+                      "B3h80": 0, "B4h80": 0, "B1bwd": 0, "HGN": 4}:
         raise AssertionError(f"graphed forward: launches per replay {per_replay}")
 
     saved = {k: v.clone() for k, v in model.state_dict().items()}
@@ -1272,7 +1290,7 @@ def count_batch_phase(torch, engine):
         len(chunk_plan(sum(engine.windows_per_image(images[i].shape[1], rects[i])[1]
                            for i in idxs), engine.batch_windows)) for idxs in sets)
     want = {"B1": 26 * replays, "B2": 18 * replays, "B3": 0, "B4": 0, "B5": 0, "B6": 0,
-            "AdamW": 0, "B3h80": 0, "B4h80": 0, "B1bwd": 0}
+            "AdamW": 0, "B3h80": 0, "B4h80": 0, "B1bwd": 0, "HGN": 4 * replays}
     if any(eager.values()) or graphed != want or replays != expect_replays or replays == 0:
         raise AssertionError(f"count_batch: eager launches {eager}, graph launches {graphed} "
                              f"over {replays} replays (expected {expect_replays})")
@@ -1339,7 +1357,7 @@ def per_replay(runner, what: str):
     per = {k: v / max(runner.replays, 1) for k, v in runner.launched.items()}
     if any(eager.values()) or runner.replays == 0 or per != {
             "B1": 26, "B2": 18, "B3": 0, "B4": 0, "B5": 0, "B6": 0, "AdamW": 0,
-            "B3h80": 0, "B4h80": 0, "B1bwd": 0}:
+            "B3h80": 0, "B4h80": 0, "B1bwd": 0, "HGN": 4}:
         raise AssertionError(f"{what}: eager launches {eager}, {runner.replays} replays, "
                              f"launches per replay {per}")
     return dict(runner.launched), eager, runner.replays
@@ -1925,7 +1943,8 @@ def train_phase(torch, dev):
     eval_before = eval_check("before training")
     eval_launches = graph_launches(eval_g.runner, {"B1": 44, "B2": 0, "B3": 18, "B4": 0,
                                                    "B5": 0, "B6": 0, "AdamW": 0,
-                                                   "B3h80": 0, "B4h80": 0, "B1bwd": 0}, 1,
+                                                   "B3h80": 0, "B4h80": 0, "B1bwd": 0,
+                                                   "HGN": 4}, 1,
                                    "eval")
 
     # The path itself: 8 steps on the repeated batch and loss mask, shots
@@ -1940,7 +1959,7 @@ def train_phase(torch, dev):
     step.runner.zero_counts()
     graphed = run_steps(torch, step, [(batch, s) for s in shots], lambda: gen.manual_seed(2))
     per_step = {"B1": 44, "B2": 0, "B3": 18, "B4": 6, "B5": 0, "B6": 0, "AdamW": 1,
-                "B3h80": 0, "B4h80": 0, "B1bwd": 19}
+                "B3h80": 0, "B4h80": 0, "B1bwd": 19, "HGN": 0}
     per_replay = graph_launches(step.runner, per_step, len(shots), "train")
     if eager_launches != {k: v * len(shots) for k, v in per_step.items()}:
         raise AssertionError(f"train (eager): launches {eager_launches} over {len(shots)} "
@@ -1979,7 +1998,7 @@ def train_phase(torch, dev):
     loss, ms = step_events(torch, step, (batch, 3))
     unfrozen = graph_launches(step.runner, {"B1": 44, "B2": 0, "B3": 18, "B4": 18, "B5": 0,
                                             "B6": 0, "AdamW": 1, "B3h80": 0, "B4h80": 0,
-                                            "B1bwd": 44},
+                                            "B1bwd": 44, "HGN": 0},
                               1, "train, encoder unfrozen")
     if not np.isfinite(loss):
         raise AssertionError(f"train, encoder unfrozen: loss {loss}")
@@ -2019,7 +2038,7 @@ def accum_phase(torch, dev):
     # the eager twin's launches are all the wrappers counted: the graphed
     # mini-steps launched nothing outside their graphs
     per_step = {"B1": 44, "B2": 0, "B3": 18, "B4": 6, "B5": 0, "B6": 0, "AdamW": 0,
-                "B3h80": 0, "B4h80": 0, "B1bwd": 19}
+                "B3h80": 0, "B4h80": 0, "B1bwd": 19, "HGN": 0}
     want = {**{k: v * len(shots) for k, v in per_step.items()}, "AdamW": len(shots) // 2,
             "B3h80": 0, "B4h80": 0}
     if launch_counts() != want or step.runner.launched != want \
@@ -2094,9 +2113,9 @@ def checkpoint_phase(torch, dev, ref):
 # recompute) and B4.
 PRETRAIN_LAUNCHES = {
     False: {"B1": 42, "B2": 0, "B3": 20, "B4": 20, "B5": 0, "B6": 0, "AdamW": 1,
-            "B3h80": 0, "B4h80": 0, "B1bwd": 42},
+            "B3h80": 0, "B4h80": 0, "B1bwd": 42, "HGN": 0},
     True: {"B1": 22, "B2": 20, "B3": 20, "B4": 20, "B5": 0, "B6": 0, "AdamW": 1,
-           "B3h80": 0, "B4h80": 0, "B1bwd": 22},
+           "B3h80": 0, "B4h80": 0, "B1bwd": 22, "HGN": 0},
 }
 
 
@@ -2240,6 +2259,127 @@ def adamw_gaps(torch, what: str, kernel, plain, lr_updates: float):
     return param_d, moment_d, worst
 
 
+# HGN at the count build's window batch: stages 0-2 and stage 3's flat
+# phase tensor, where the pred conv is folded in, each in the memory order
+# its conv returns in the model (stage 0's input is the decoder's NHWC
+# token grid; the upsamples' einsums hand the later convs NCHW order).
+HGN_SHAPES = (((WINDOWS, 24, 24, 256), "nhwc"), ((WINDOWS, 48, 48, 256), "nchw"),
+              ((WINDOWS, 96, 96, 256), "nchw"), ((WINDOWS, 96, 96, 1024), "nchw"))
+
+
+def hgn_phase(torch, dev):
+    """HGN (ops/fused_gn.py) against its plain version at HGN_SHAPES in
+    bf16: each output within one rounding of the plain one (2^-7 * |ref|
+    + 1e-5 elementwise; the pred fold's [16, 96, 96, 4] within 2^-6 of
+    max|ref|), the same bits on two calls, one HGN a call. Device ms
+    (graph-replayed, inputs cycled past the 50 MB L2) of the kernels, the
+    plain version, the ATen chain it replaced (the conv's bias add,
+    ``ops/norms.py group_norm`` or ``gn_phase_stats`` + ``gn_phase_apply``,
+    ReLU, ``pred_phase_flat``) and, as the library's yardstick,
+    F.group_norm + ReLU on the channels-last NCHW view (at the phase
+    shape over its 1024 channels in 8 groups: other groups, the same
+    bytes), beside the bytes bound: the input read twice and the output
+    written once (at the phase shape the [16, 96, 96, 4] pred output)."""
+    import torch.nn.functional as F
+
+    from countr_tpu_torch.ops import subpixel as sp
+    from countr_tpu_torch.ops.fused_gn import (
+        fused_group_norm, fused_group_norm_phase, group_norm_phase_plain, group_norm_relu_plain,
+    )
+    from countr_tpu_torch.ops.norms import group_norm
+
+    rng = np.random.default_rng(7)
+    bf = torch.bfloat16
+
+    def conv_out(shape, order):
+        x = randn_on(torch, rng, dev, shape, 1.5, 0.3, bf)
+        return x if order == "nhwc" else x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+
+    shapes = []
+    for shape, order in HGN_SHAPES:
+        n, h, w, c4 = shape
+        phase = c4 == 1024
+        c = 256
+        nbytes = n * h * w * c4 * 2
+        sets = max(2, -(-120_000_000 // nbytes))
+        cb = randn_on(torch, rng, dev, (c,), 0.3, dtype=torch.float32)
+        s = randn_on(torch, rng, dev, (c,), 0.1, 1.0, torch.float32)
+        b = randn_on(torch, rng, dev, (c,), 0.1, dtype=torch.float32)
+        if phase:
+            pk = randn_on(torch, rng, dev, (c,), 0.05, dtype=bf)
+            pb = randn_on(torch, rng, dev, (1,), 0.1, dtype=torch.float32)
+            args = [(conv_out(shape, order),
+                     tuple(randn_on(torch, rng, dev, sh, 1.5, 0.3, bf) for sh in
+                           ((n, 2, 2 * w, c), (n, 2, 2 * w, c), (n, 2 * h, 2, c),
+                            (n, 2 * h, 2, c))))
+                    for _ in range(sets)]
+
+            def kernel(x, strips):
+                return fused_group_norm_phase(x, strips, cb, s, b, 8, pk, pb)[0]
+
+            def plain(x, strips):
+                return group_norm_phase_plain(x, strips, cb, s, b, 8, pk, pb)[0]
+
+            def chain(x, strips):
+                phb = x + cb.repeat(4).to(bf)
+                mean, rstd = sp.gn_phase_stats(phb, strips, 8, c_real=c)
+                yb = F.relu(sp.gn_phase_apply(phb, mean, rstd, s, b, c_real=c))
+                return sp.pred_phase_flat(yb, pk.reshape(c, 1), pb)
+
+            def library(x, strips):
+                return F.relu(F.group_norm(x.permute(0, 3, 1, 2), 8, s.repeat(4).to(bf),
+                                           b.repeat(4).to(bf), 1e-5))
+            moved = 2 * nbytes + n * h * w * 4 * 2
+        else:
+            args = [(conv_out(shape, order),) for _ in range(sets)]
+
+            def kernel(x):
+                return fused_group_norm(x, cb, s, b, 8)
+
+            def plain(x):
+                return group_norm_relu_plain(x, cb, s, b, 8)
+
+            def chain(x):
+                return F.relu(group_norm(x + cb.to(bf), s, b, 8))
+
+            def library(x):
+                return F.relu(F.group_norm(x.permute(0, 3, 1, 2), 8, s.to(bf), b.to(bf), 1e-5))
+            moved = 3 * nbytes
+        t0 = time.perf_counter()
+        n0 = launch_counts()["HGN"]
+        got = kernel(*args[0])
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        if launch_counts()["HGN"] != n0 + 1:
+            raise AssertionError(f"HGN {list(shape)}: one call counted "
+                                 f"{launch_counts()['HGN'] - n0} launches")
+        want = plain(*args[0])
+        d = (got.float() - want.float()).abs()
+        top = float(want.float().abs().max())
+        if phase:
+            ok = float(d.max()) <= 2.0 ** -6 * top
+        else:
+            ok = bool((d <= 2.0 ** -7 * want.float().abs() + 1e-5).all())
+        if not ok:
+            raise AssertionError(f"HGN {list(shape)}: max|d| {float(d.max())} (max|ref| {top})")
+        if not torch.equal(kernel(*args[0]), got):
+            raise AssertionError(f"HGN {list(shape)}: two calls gave other bits")
+        chain_d = max_abs(chain(*args[0]), want)
+        bound_ms, bound_by = bound(0.0, moved)
+        shapes.append(dict(
+            shape=list(shape), order=order, pred_fold=phase, max_abs_err=float(d.max()),
+            max_abs_ref=top,
+            chain_max_abs_diff=chain_d, first_call_s=first_s,
+            ms=graph_ms(torch, kernel, args), plain_ms=graph_ms(torch, plain, args),
+            chain_ms=graph_ms(torch, chain, args), library_ms=graph_ms(torch, library, args),
+            bound_ms=bound_ms, bound_by=bound_by, eager_ms=time_ms(torch, kernel, args),
+        ))
+        say("kernel", name="HGN fused_group_norm", **shapes[-1])
+        del args
+        torch.cuda.empty_cache()
+    return shapes
+
+
 def adamw_phase(torch, dev):
     """The fused AdamW update (ops/fused_adamw.py) at mae_base's trainable
     parameters (the pretrain phase's state: 251 tensors, 111,654,912
@@ -2302,9 +2442,10 @@ FT_STEPS = 12  # --limit_steps: the steps of an epoch of the phase
 # B1bwd 19 a train replay: the frozen encoder's 25 LayerNorms run under
 # no_grad, so only the decoder's 19 have a backward
 FT_TRAIN_LAUNCHES = {"B1": 44, "B2": 0, "B3": 18, "B4": 6, "B5": 0, "B6": 0, "AdamW": 1,
-                     "B3h80": 0, "B4h80": 0, "B1bwd": 19}
+                     "B3h80": 0, "B4h80": 0, "B1bwd": 19, "HGN": 0}
+# HGN 4 an eval or panel replay: the density head's stages under inference mode
 FT_EVAL_LAUNCHES = {"B1": 44, "B2": 0, "B3": 18, "B4": 0, "B5": 0, "B6": 0, "AdamW": 0,
-                    "B3h80": 0, "B4h80": 0, "B1bwd": 0}
+                    "B3h80": 0, "B4h80": 0, "B1bwd": 0, "HGN": 4}
 
 
 def finetune_args(d: str, out: str, *extra):
@@ -2601,7 +2742,7 @@ SURF_LOG_EVERY = 4  # the surfaces phase's --log_every
 SURF_STATS = ("train/loss", "train/MAE", "train/RMSE", "val/MAE", "val/RMSE", "val/NAE", "lr",
               "epoch_time_s")  # an epoch's record (countr_tpu/cli/finetune.py:446-456)
 ENTRY_LAUNCHES = {"B1": 26, "B2": 18, "B3": 0, "B4": 0, "B5": 0, "B6": 0, "AdamW": 0,
-                  "B3h80": 0, "B4h80": 0, "B1bwd": 0}
+                  "B3h80": 0, "B4h80": 0, "B1bwd": 0, "HGN": 4}
 
 
 class RecordingWandb:
@@ -3201,7 +3342,8 @@ def pretrain_cli_phase(torch, d: str):
 
 
 HUGE_LAUNCHES = {"B1": 82, "B2": 0, "B3": 40, "B4": 40, "B5": 0, "B6": 0, "AdamW": 1,
-                 "B3h80": 32, "B4h80": 32, "B1bwd": 82}  # 32 x 1280 encoder, 8 x 512 decoder
+                 "B3h80": 32, "B4h80": 32, "B1bwd": 82,
+                 "HGN": 0}  # 32 x 1280 encoder, 8 x 512 decoder
 
 
 def huge_adamw(torch, state) -> dict:
@@ -3619,7 +3761,7 @@ def parallel_counting(torch, model) -> dict:
     per_replica = []
     for i, r in enumerate(runners):
         want = {"B1": 26 * r.replays, "B2": 18 * r.replays, "B3": 0, "B4": 0, "B5": 0, "B6": 0,
-                "AdamW": 0, "B3h80": 0, "B4h80": 0, "B1bwd": 0}
+                "AdamW": 0, "B3h80": 0, "B4h80": 0, "B1bwd": 0, "HGN": 4 * r.replays}
         if any(eager.values()) or r.launched != want or r.replays == 0:
             raise AssertionError(f"parallel count_batch, replica {i}: {r.launched} over "
                                  f"{r.replays} replays, eager {eager}")
@@ -3747,6 +3889,7 @@ def main() -> int:
     b6_shapes = cross_phase(torch, dev, ab)
     say("ab_launches", **ab)
     adamw_shapes = adamw_phase(torch, dev)
+    hgn_shapes = hgn_phase(torch, dev)
 
     model = build_countr("mae_vit_base6_patch16", seed=0, **fast_mode_overrides("bf16"))
     forward_phase(torch, dev, model)
@@ -3855,6 +3998,12 @@ def main() -> int:
               design="one launch over every trainable parameter: flat fp32 gradient and "
                      "moments, the parameters in place through a chunk table, a persistent "
                      "grid of 4 programs an SM, 16-byte vectors"),
+        entry("HGN fused_group_norm", "triton", "countr_tpu_torch/ops/fused_gn.py",
+              "none (XLA fuses countr_tpu/ops/norms.py group_norm and ops/subpixel.py "
+              "gn_phase_stats, gn_phase_apply, pred_phase_flat)", "count_batch", hgn_shapes,
+              design="a statistics pass (per-tile sums and centred squares, fp32), a "
+                     "fixed-order merge a sample, and a normalise + ReLU pass, the conv bias "
+                     "added in registers; at stage 3 the pred conv folded into the last pass"),
     ]}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,6 +29,8 @@ from countr_tpu_torch.models.vit import (
 )
 from countr_tpu_torch.ops.attention import cross_attention_smallk, multi_head_attention
 from countr_tpu_torch.ops.conv import conv2d_nhwc
+from countr_tpu_torch.ops.fused_gn import DTYPES as HGN_DTYPES
+from countr_tpu_torch.ops.fused_gn import fused_group_norm, fused_group_norm_phase
 from countr_tpu_torch.ops.norms import group_norm, instance_norm
 from countr_tpu_torch.ops.posembed import get_2d_sincos_pos_embed
 from countr_tpu_torch.ops.subpixel import (
@@ -109,10 +111,15 @@ def exemplar_encoder(x: torch.Tensor, convs, dtype: torch.dtype) -> torch.Tensor
     return x
 
 
-def _head_stage(x: torch.Tensor, stage: nn.Sequential, dtype) -> torch.Tensor:
-    """conv3x3 + GroupNorm(8) + ReLU of one density-head stage."""
+def _head_stage(x: torch.Tensor, stage: nn.Sequential, dtype, records_grad: bool) -> torch.Tensor:
+    """conv3x3 + GroupNorm(8) + ReLU of one density-head stage: with HGN
+    (ops/fused_gn.py) after a bias-free conv where no gradient is recorded
+    and the dtype is one it takes; else the ATen chain."""
     conv, gn = stage[0], stage[1]
-    x = conv2d_nhwc(x.to(dtype), conv.weight, conv.bias, 1)
+    hgn = not records_grad and dtype in HGN_DTYPES
+    x = conv2d_nhwc(x.to(dtype), conv.weight, None if hgn else conv.bias, 1)
+    if hgn:
+        return fused_group_norm(x, conv.bias, gn.weight, gn.bias, gn.num_groups, gn.eps)
     return F.relu(group_norm(x, gn.weight, gn.bias, gn.num_groups, gn.eps))
 
 
@@ -127,14 +134,21 @@ def density_head(x: torch.Tensor, stages, dtypes, subpixel: bool) -> torch.Tenso
     ``subpixel`` fuses the last 2x upsample into conv3 as a phase-space
     conv and keeps GN/ReLU/pred/final upsample in phase layout
     (ops/subpixel.py); numerically equivalent to the reference form. It
-    runs in one dtype, ``dtypes[0]``."""
+    runs in one dtype, ``dtypes[0]``.
+
+    Where no gradient is recorded (grad mode off, or no input requiring
+    one), each stage's bias + GroupNorm + ReLU, and at the subpixel stage 3
+    the pred conv too, run as HGN's two passes (ops/fused_gn.py); a
+    training step keeps the ATen chain, which autograd differentiates."""
+    records_grad = torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for s in stages for p in s.parameters()))
     for idx in range(3):
-        x = _head_stage(x, stages[idx], dtypes[idx])
+        x = _head_stage(x, stages[idx], dtypes[idx], records_grad)
         if idx < 2 or not subpixel:
             x = upsample2x_bilinear(x)
     pred = stages[3][3]
     if not subpixel:
-        x = _head_stage(x, stages[3], dtypes[3])
+        x = _head_stage(x, stages[3], dtypes[3], records_grad)
         x = conv2d_nhwc(x.to(dtypes[4]), pred.weight, pred.bias, 0)
         return upsample2x_bilinear(x)[..., 0]
 
@@ -144,11 +158,17 @@ def density_head(x: torch.Tensor, stages, dtypes, subpixel: bool) -> torch.Tenso
     width = conv3.weight.shape[0]
     pk = pred.weight.reshape(1, width).t()  # [width, 1]
     xd = x.to(dtype)
-    ph = phase_conv2x_core(xd, conv3.weight, conv3.bias)
+    hgn = not records_grad and dtype in HGN_DTYPES
+    ph = phase_conv2x_core(xd, conv3.weight, None if hgn else conv3.bias)
     strips = ring_strips(xd, conv3.weight, conv3.bias)
-    mean, rstd = gn_phase_stats(ph, strips, gn3.num_groups, c_real=width)
-    yb = F.relu(gn_phase_apply(ph, mean, rstd, gn3.weight, gn3.bias, c_real=width))
-    z4 = pred_phase_flat(yb, pk.to(dtype), pred.bias)
+    if hgn:
+        z4, mean, rstd = fused_group_norm_phase(ph, strips, conv3.bias, gn3.weight, gn3.bias,
+                                                gn3.num_groups, pk.to(dtype), pred.bias,
+                                                gn3.eps)
+    else:
+        mean, rstd = gn_phase_stats(ph, strips, gn3.num_groups, c_real=width)
+        yb = F.relu(gn_phase_apply(ph, mean, rstd, gn3.weight, gn3.bias, c_real=width))
+        z4 = pred_phase_flat(yb, pk.to(dtype), pred.bias)
     zs = [
         (F.relu(gn_phase_apply(s, mean, rstd, gn3.weight, gn3.bias, c_real=width))
          @ pk.to(dtype) + pred.bias.to(dtype))[..., 0]

@@ -8,13 +8,15 @@ and ``.bwd_launches`` for B3 and B4 at every head dim, ``.launches_h80``
 and ``.bwd_launches_h80`` for those of them at head dim 80 (B3h80,
 B4h80), ``fused_mlp_block.launches`` for B5,
 ``fused_cross_attention_block.launches`` for B6, ``fused_adamw.launches``
-for the training state's AdamW update, which replaces no TPU kernel). A CUDA graph's replay runs
+for the training state's AdamW update, and ``fused_group_norm.launches``
+for HGN, the density head's GroupNorm, one a stage call; neither replaces
+a TPU kernel). A CUDA graph's replay runs
 no wrapper: the graph runner (engine/graphs.py) keeps its own counts.
 """
 
 from __future__ import annotations
 
-KERNELS = ("B1", "B2", "B3", "B4", "B5", "B6", "AdamW", "B3h80", "B4h80", "B1bwd")
+KERNELS = ("B1", "B2", "B3", "B4", "B5", "B6", "AdamW", "B3h80", "B4h80", "B1bwd", "HGN")
 
 
 def _counters():
@@ -22,6 +24,7 @@ def _counters():
     from countr_tpu_torch.ops.fused_attn import fused_attention
     from countr_tpu_torch.ops.fused_block import fused_attention_block
     from countr_tpu_torch.ops.fused_cross import fused_cross_attention_block
+    from countr_tpu_torch.ops.fused_gn import fused_group_norm
     from countr_tpu_torch.ops.fused_ln import fused_layer_norm
     from countr_tpu_torch.ops.fused_mlp import fused_mlp_block
 
@@ -32,7 +35,8 @@ def _counters():
             "AdamW": (fused_adamw, "launches"),
             "B3h80": (fused_attention, "launches_h80"),
             "B4h80": (fused_attention, "bwd_launches_h80"),
-            "B1bwd": (fused_layer_norm, "bwd_launches")}
+            "B1bwd": (fused_layer_norm, "bwd_launches"),
+            "HGN": (fused_group_norm, "launches")}
 
 
 def launch_counts() -> dict:

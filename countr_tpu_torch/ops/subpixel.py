@@ -50,13 +50,16 @@ def compose_phase_kernel(weight: torch.Tensor) -> torch.Tensor:
 
 
 def phase_conv2x_core(
-    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None
 ) -> torch.Tensor:
     """conv3x3(up2x(x)) in FLAT phase layout with zero padding at the low
     resolution: x [N, h, w, Cin] -> [N, h, w, 4*Cout], channels ordered
     (p, q, cout). Wrong on the outermost two high-res rows/cols; pair
-    with ring_strips for exact edges."""
+    with ring_strips for exact edges. ``bias`` None leaves the bias out
+    (for a consumer that adds it itself, ops/fused_gn.py)."""
     ph = conv2d_nhwc(x, compose_phase_kernel(weight), None, padding=1)
+    if bias is None:
+        return ph
     return ph + bias.repeat(4).to(ph.dtype)
 
 
@@ -129,6 +132,16 @@ def gn_phase_stats(ph, strips, num_groups: int, c_real: int = 256,
     [N, h, w, 4*C]: the ring lines inside ``ph`` are swapped for the true
     strip values by inclusion-exclusion (the four 2x2-block corners are
     in both a row and a col strip). Returns (mean, rstd) [N, G] fp32."""
+    s1, s2 = _sums_flat(ph, c_real, num_groups)
+    return gn_phase_moments(s1, s2, ph, strips, num_groups, c_real, eps)
+
+
+def gn_phase_moments(s1, s2, ph, strips, num_groups: int, c_real: int = 256,
+                     eps: float = 1e-5, ph_bias=None):
+    """(mean, rstd) [N, G] fp32 from the sums ``s1``, ``s2`` [N, G] of the
+    whole phase tensor, ring-corrected as ``gn_phase_stats`` does. ``ph``
+    supplies the ring lines to take out; ``ph_bias`` [4*C], where given,
+    is added to them first (a ``ph`` made without its conv bias)."""
     top, bot, left, right = strips
     n, h, w, _ = ph.shape
     g = num_groups
@@ -136,12 +149,13 @@ def gn_phase_stats(ph, strips, num_groups: int, c_real: int = 256,
 
     ph_rows = torch.cat([ph[:, :1], ph[:, h - 1:]], 1)
     ph_cols = torch.cat([ph[:, :, :1], ph[:, :, w - 1:]], 2)
+    if ph_bias is not None:
+        ph_rows, ph_cols = ph_rows + ph_bias, ph_cols + ph_bias
     ph_corn = torch.cat([ph_rows[:, :, :1], ph_rows[:, :, w - 1:]], 2)
     tr_rows = torch.cat([top, bot], 1)          # [N, 4, 2w, C]
     tr_cols = torch.cat([left, right], 2)       # [N, 2h, 4, C]
     tr_corn = torch.cat([tr_rows[:, :, :2], tr_rows[:, :, -2:]], 2)
 
-    s1, s2 = _sums_flat(ph, c_real, g)
     for v, sgn in ((ph_rows, -1), (ph_cols, -1), (ph_corn, +1),
                    (tr_rows, +1), (tr_cols, +1), (tr_corn, -1)):
         d1, d2 = _sums_flat(v, c_real, g)

@@ -38,7 +38,18 @@ give the same bits on two calls. B3 and B4 at head dim 80 (ViT-H/14's
 encoder) at its pretrain shape, ragged N, the resident limit of 640 keys
 and past it, x8 logits, the same bounds, counted by the hd-80 counters
 too, and the same bits on two calls; the ViT-H decoder's [32, 729, 512]
-at head dim 32.
+at head dim 32. HGN (the density head's bias + GroupNorm + ReLU, and at
+stage 3 the pred conv) at the count build's four head shapes, bf16 and
+fp32: each output within one rounding of its plain version, elementwise
+(kernel and plain version round at the same points, after statistics
+summed in another order: one ulp of the reference, 2^-7 * |ref|, plus
+1e-5 for the statistics' own fp32 difference in normalised units; fp32
+outputs 1e-5 * max|ref|); the pred fold, a 256-term dot of such values
+rounded once more, within two bf16 ulps of max|ref| (2^-6); the
+statistics within 1e-5 relative, and against float64 no less accurate
+than the fp32 arithmetic they replaced; the same bits on two calls and
+replayed from a CUDA graph; the whole density head against the ATen chain it
+replaces; and its refusals.
 """
 
 import numpy as np
@@ -51,6 +62,10 @@ from countr_tpu_torch.ops.fused_attn import (
 )
 from countr_tpu_torch.ops.fused_block import attention_block_plain, fused_attention_block
 from countr_tpu_torch.ops.fused_cross import cross_block_plain, fused_cross_attention_block
+from countr_tpu_torch.ops.fused_gn import (
+    fused_group_norm, fused_group_norm_phase, group_norm_phase_plain, group_norm_relu_plain,
+    group_stats, group_stats_plain,
+)
 from countr_tpu_torch.ops.fused_ln import (
     fused_layer_norm, fused_layer_norm_bwd, layer_norm_bwd_plain, layer_norm_plain,
 )
@@ -605,3 +620,207 @@ def test_gemm_refuses_malformed_input(cuda_device):
         gemm_nt(a[:, :36].contiguous(), w[:, :36].contiguous(), bias)
     with pytest.raises(ValueError, match="residual"):
         gemm_nt(a, w, bias, torch.zeros((16, 4), device=cuda_device, dtype=bf), "residual")
+
+
+# HGN at the count build's window batch: the head's stages 0-2 (NHWC) and
+# stage 3's flat phase tensor [N, 96, 96, 4 * 256] with the pred fold.
+HGN_SHAPES = [(16, 24, 24, 256), (16, 48, 48, 256), (16, 96, 96, 256)]
+HGN_PHASE = (16, 96, 96, 256)
+
+
+def _hgn_args(rng, dev, shape, dtype, nchw=False):
+    """A conv output without its bias (N(0.3, 1.5^2)), [N, H, W, C] in
+    NHWC or (``nchw``) NCHW order, as a conv on the card returns either;
+    the conv bias, the GroupNorm scale and shift."""
+    n, h, w, c = shape
+    x = _t(rng, shape, dev, 1.5, 0.3, dtype)
+    if nchw:
+        x = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    return (x, _t(rng, (c,), dev, 0.3), _t(rng, (c,), dev, 0.1, 1.0), _t(rng, (c,), dev, 0.1))
+
+
+def _phase_args(rng, dev, dtype, n=16, h=96, w=96, c=256, nchw=True):
+    """fused_group_norm_phase's arguments: the phase tensor (without the
+    conv bias), the strips, the conv bias, scale and shift, 8 groups, the
+    pred kernel and bias."""
+    ph, cb, s, b = _hgn_args(rng, dev, (n, h, w, 4 * c), dtype, nchw)
+    strips = tuple(_t(rng, sh, dev, 1.5, 0.3, dtype) for sh in
+                   ((n, 2, 2 * w, c), (n, 2, 2 * w, c), (n, 2 * h, 2, c), (n, 2 * h, 2, c)))
+    pk = _t(rng, (c,), dev, 0.05, dtype=dtype)
+    pb = _t(rng, (1,), dev, 0.1)
+    return [ph, strips, cb[:c], s[:c], b[:c], 8, pk, pb]
+
+
+def _within_rounding(got, want, dtype):
+    d = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        return float(d.max()) <= 1e-5 * max(1.0, float(want.abs().max()))
+    return bool((d <= 2.0 ** -7 * want.float().abs() + 1e-5).all())
+
+
+@pytest.mark.parametrize("nchw", [False, True], ids=["nhwc", "nchw"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", HGN_SHAPES)
+def test_hgn_matches_plain(cuda_device, shape, dtype, nchw):
+    rng = np.random.default_rng(20)
+    x, cb, s, b = _hgn_args(rng, cuda_device, shape, dtype, nchw)
+    st, st_plain = group_stats(x, cb, 8), group_stats_plain(x, cb, 8)
+    torch.testing.assert_close(st, st_plain, rtol=1e-5, atol=1e-6)
+    n0 = fused_group_norm.launches
+    got = fused_group_norm(x, cb, s, b, 8)
+    torch.cuda.synchronize()
+    assert fused_group_norm.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == x.shape and got.stride() == x.stride()
+    assert _within_rounding(got, group_norm_relu_plain(x, cb, s, b, 8), dtype)
+
+
+@pytest.mark.parametrize("nchw", [False, True], ids=["nhwc", "nchw"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_hgn_phase_matches_plain(cuda_device, dtype, nchw):
+    rng = np.random.default_rng(21)
+    args = _phase_args(rng, cuda_device, dtype, nchw=nchw)
+    ph, cb = args[0], args[2]
+    sums = group_stats(ph, cb, 8, sums=True)
+    torch.testing.assert_close(sums, group_stats_plain(ph, cb, 8, sums=True),
+                               rtol=1e-5, atol=1e-2)
+    n0 = fused_group_norm.launches
+    z, mean, rstd = fused_group_norm_phase(*args)
+    torch.cuda.synchronize()
+    assert fused_group_norm.launches == n0 + 1
+    z_p, mean_p, rstd_p = group_norm_phase_plain(*args)
+    torch.testing.assert_close(mean, mean_p, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(rstd, rstd_p, rtol=1e-5, atol=0)
+    assert z.dtype == dtype and z.shape == (16, 96, 96, 4)
+    lim = (2.0 ** -6 if dtype == torch.bfloat16 else 1e-5) * float(z_p.float().abs().max())
+    assert float((z.float() - z_p.float()).abs().max()) <= lim
+
+
+@pytest.mark.parametrize("nchw", [False, True], ids=["nhwc", "nchw"])
+def test_hgn_statistics_against_float64(cuda_device, nchw):
+    """The kernels' mean and rstd, and stage 3's sum of squares, on data
+    with a mean of 20 and a spread of 1 at stage 2's shape: within the
+    error of the fp32 arithmetic they replaced on the card (ops/norms.py's
+    two-pass mean and variance; ops/subpixel.py's sums), or 4 fp32 ulps
+    where both are exact to rounding."""
+    rng = np.random.default_rng(25)
+    x, _, _, _ = _hgn_args(rng, cuda_device, (16, 96, 96, 256), torch.float32, nchw)
+    x = (x - 0.3) / 1.5 + 20  # N(20, 1), in x's memory order
+    assert x.is_contiguous() != nchw
+    zero = torch.zeros(256, device=cuda_device)
+    floor = 4 * 2.0 ** -24
+    xg64 = x.double().reshape(16, -1, 8, 32)
+    mean64 = xg64.mean(dim=(1, 3))
+    rstd64 = 1 / torch.sqrt((xg64 - mean64[:, None, :, None]).square().mean(dim=(1, 3)) + 1e-5)
+    xg = x.reshape(16, -1, 8, 32)
+    mean_old = xg.mean(dim=(1, 3))
+    rstd_old = torch.reciprocal(torch.sqrt(
+        (xg - mean_old[:, None, :, None]).square().mean(dim=(1, 3)) + 1e-5))
+    s2_old = xg.square().sum(dim=(1, 3))
+    mean, rstd = group_stats(x, zero, 8).unbind(1)
+    s2 = group_stats(x, zero, 8, sums=True)[:, 1]
+    for got, old, ref in ((mean, mean_old, mean64), (rstd, rstd_old, rstd64),
+                          (s2, s2_old, xg64.square().sum(dim=(1, 3)))):
+        err = float(((got.double() - ref) / ref).abs().max())
+        old_err = float(((old.double() - ref) / ref).abs().max())
+        assert err <= max(old_err, floor), (err, old_err)
+
+
+def _hgn_calls(dev):
+    rng = np.random.default_rng(22)
+    calls = [(fused_group_norm, (*_hgn_args(rng, dev, shape, torch.bfloat16, k > 0), 8))
+             for k, shape in enumerate(HGN_SHAPES)]
+    calls.append((lambda *a: fused_group_norm_phase(*a)[0],
+                  _phase_args(rng, dev, torch.bfloat16)))
+    return calls
+
+
+def test_hgn_is_deterministic_and_graphs(cuda_device):
+    """Two calls give the same bits at every shape, and so does a call
+    captured in a CUDA graph (after an eager warm-up) and replayed."""
+    calls = _hgn_calls(cuda_device)
+    eager = [fn(*a) for fn, a in calls]
+    for (fn, a), e in zip(calls, eager):
+        assert torch.equal(fn(*a), e)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        n0 = fused_group_norm.launches
+        with torch.cuda.graph(graph, stream=side):
+            outs = [fn(*a) for fn, a in calls]
+    torch.cuda.current_stream().wait_stream(side)
+    assert fused_group_norm.launches == n0 + len(calls)
+    graph.replay()
+    torch.cuda.synchronize()
+    for o, e in zip(outs, eager):
+        assert torch.equal(o, e)
+
+
+@pytest.mark.parametrize("subpixel", [True, False], ids=["subpixel_bf16", "reference_fp32"])
+def test_density_head_hgn_against_aten_chain(cuda_device, subpixel):
+    """The whole density head of the count build (subpixel, bf16) and of
+    the mixed builds' fp32 head (reference form) on a [16, 24, 24, 512]
+    token grid: HGN where no gradient is recorded, against the ATen chain
+    that autograd takes. bf16: the densities within 2^-5 of max|ref| (four
+    stages, each within a rounding of the chain, compound), the window
+    sums within 1e-2; fp32: within 1e-5 of max|ref|."""
+    from torch import nn
+
+    from countr_tpu_torch.models.countr import density_head
+
+    torch.manual_seed(23)
+    stages = []
+    for k in range(4):
+        layers = [nn.Conv2d(512 if k == 0 else 256, 256, 3, padding=1),
+                  nn.GroupNorm(8, 256), nn.ReLU()]
+        if k == 3:
+            layers.append(nn.Conv2d(256, 1, 1))
+        stages.append(nn.Sequential(*layers).to(cuda_device))
+    for st in stages:
+        with torch.no_grad():
+            st[1].weight.uniform_(0.8, 1.2)
+            st[1].bias.uniform_(-0.1, 0.1)
+    dtype = torch.bfloat16 if subpixel else torch.float32
+    dtypes = (dtype,) * 5
+    grid = torch.randn(16, 24, 24, 512, device=cuda_device).to(dtype)
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        n0 = fused_group_norm.launches
+        with torch.inference_mode():
+            got = density_head(grid, stages, dtypes, subpixel).float()
+        assert fused_group_norm.launches == n0 + 4
+        want = density_head(grid, stages, dtypes, subpixel).float()  # autograd: the chain
+        assert fused_group_norm.launches == n0 + 4
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    want = want.detach()
+    top = float(want.abs().max())
+    d = float((got - want).abs().max())
+    if subpixel:
+        assert d <= 2.0 ** -5 * top
+        torch.testing.assert_close(got.sum(dim=(1, 2)), want.sum(dim=(1, 2)), rtol=1e-2, atol=0)
+    else:
+        assert d <= 1e-5 * top
+
+
+def test_hgn_refuses_on_card(cuda_device):
+    rng = np.random.default_rng(24)
+    x, cb, s, b = _hgn_args(rng, cuda_device, (2, 8, 8, 64), torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        fused_group_norm(x.half(), cb, s, b, 8)
+    with pytest.raises(ValueError, match="dense"):
+        fused_group_norm(x.transpose(1, 2), cb, s, b, 8)
+    with pytest.raises(ValueError, match="conv_bias"):
+        fused_group_norm(x, cb[:32], s, b, 8)
+    with pytest.raises(ValueError, match="scale"):
+        fused_group_norm(x, cb, s.cpu(), b, 8)
+    with pytest.raises(ValueError, match="groups"):
+        fused_group_norm(x, cb, s, b, 7)
+    with pytest.raises(ValueError, match="gradient"):
+        fused_group_norm(x, cb, s.requires_grad_(), b, 8)
+    args = _phase_args(rng, cuda_device, torch.bfloat16, 2, 8, 8, 64)
+    with pytest.raises(ValueError, match="pred_kernel"):
+        fused_group_norm_phase(*args[:6], args[6].float(), args[7])
+    with pytest.raises(ValueError, match=r"\[N, h, w, 256\]"):
+        fused_group_norm_phase(args[0][..., :128].contiguous(), *args[1:])
